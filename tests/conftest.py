@@ -38,6 +38,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "modern_jax: needs jax APIs absent from old sandboxes "
         "(jax.shard_map / jax.sharding.set_mesh / pallas CompilerParams)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's kernels)")
 
 
 def _modern_jax_missing():
