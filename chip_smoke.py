@@ -6,9 +6,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA sources with nvcc from this checkout;
+   print ptxas's registers and spills, and the wgmma (HGMMA) and TMA
+   (UTMALDG) instructions in the bf16 forward kernel's SASS;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
-   at the shapes the model runs, and time kernel, plain version, the
-   PyTorch library call that computes the same function, and the bound;
+   at the shapes the model runs, and against itself (a repeat call is
+   bitwise equal); time kernel, plain version, the PyTorch library call
+   that computes the same function (one call between events, and calls
+   back to back), and the bound;
 4. backward kernels: dQ and dK/dV against their plain version on the same
    cases, bitwise equal on a repeat call, timed beside the backward of
    PyTorch's SDPA and their bound;
@@ -31,7 +35,9 @@ It prints a ``{"kernels": [...]}`` line, the card line, and last
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import time
 
@@ -80,6 +86,26 @@ def _median_ms(fn, iters=10, warmup=3):
     return float(np.median(times))
 
 
+def _busy_ms(fn, calls=10, samples=3, warmup=3):
+    """Per-call time of ``calls`` calls enqueued back to back (the card stays
+    busy, so the host's launch path is hidden where it is shorter than the
+    kernel), median over ``samples``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -112,14 +138,47 @@ def _ptxas_table(log):
     return table
 
 
+def _sass_counts(so, kernel, opcodes):
+    """{function: {opcode: count}} over the SASS of each instantiation of
+    ``kernel`` in the library ``so``, from ``cuobjdump -sass``; None where
+    cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                counts[name] = dict.fromkeys(opcodes, 0)
+        elif name:
+            for op in opcodes:
+                counts[name][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
 def phase_build():
     t0 = time.perf_counter()
-    _build.build()
+    libs = _build.build()
     dt = time.perf_counter() - t0
     print(f"[build] {len(_build.SOURCES)} source(s) in {dt:.1f} s", flush=True)
     for source, log in _build.build_log.items():
         for kernel, info in _ptxas_table(log).items():
             print(f"[build] {source}.cu {kernel}: {info}", flush=True)
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"[build] {source}.cu: {line.strip()}", flush=True)
+    # the bf16 forward runs wgmma (HGMMA) on tiles that TMA (UTMALDG) loads
+    counts = _sass_counts(libs["flash_fwd"], "flash_fwd_bf16_kernel",
+                          ("HGMMA", "UTMALDG"))
+    if counts is None:
+        print("[build] SASS of flash_fwd_bf16_kernel: not available (no "
+              "cuobjdump)", flush=True)
+    for fn, ops in (counts or {}).items():
+        print(f"[build] SASS of {fn}: {json.dumps(ops)}", flush=True)
 
 
 # (name, B, Lq, Lk, H, Hk, D, dtype, causal, window, softcap)
@@ -136,6 +195,11 @@ KERNEL_CASES = [
      0.0),
     ("ragged_q700_k1000_d64_full", 2, 700, 1000, 16, 4, 64, torch.bfloat16,
      False, None, 0.0),
+    # the edges of the 128-row tiling: one full and one ragged q tile; a
+    # window that is not a multiple of the tile
+    ("ragged_L200", 2, 200, 200, 32, 8, 128, torch.bfloat16, True, None, 0.0),
+    ("window1000_L4096", 2, 4096, 4096, 32, 8, 128, torch.bfloat16, True,
+     1000, 0.0),
     ("f32_window48_softcap", 1, 300, 300, 8, 2, 128, torch.float32, True, 48,
      50.0),
     ("f32_d64", 1, 512, 512, 8, 2, 64, torch.float32, True, None, 0.0),
@@ -222,25 +286,32 @@ def phase_kernels():
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         tol_out, tol_lse = TOL[dtype]
-        ms = _median_ms(lambda: flash_cuda.flash_attention_fwd(q, k, v, **kw))
+        again, _ = flash_cuda.flash_attention_fwd(q, k, v, **kw)
+        bitwise = torch.equal(out, again)
+        del again
+        kernel = lambda: flash_cuda.flash_attention_fwd(q, k, v, **kw)
+        ms, busy_ms = _median_ms(kernel), _busy_ms(kernel)
         plain_ms = _median_ms(
             lambda: flash_cuda.flash_attention_fwd_reference(q, k, v, **kw),
             iters=3, warmup=1)
         lib = _library_call(q, k, v, causal, window, softcap)
         library_ms = _median_ms(lib) if lib is not None else None
+        library_busy_ms = _busy_ms(lib) if lib is not None else None
         bound_ms, bound_by = _bound(q, k, v, causal, window)
         row = dict(case=name, shape=[b, lq, lk, h, hk, d],
                    dtype=str(dtype).replace("torch.", ""), causal=causal,
                    window=window, softcap=softcap, max_abs_err=err_out,
-                   max_abs_err_lse=err_lse, tol=[tol_out, tol_lse], ms=ms,
+                   max_abs_err_lse=err_lse, tol=[tol_out, tol_lse],
+                   bitwise_repeat=bitwise, ms=ms, busy_ms=busy_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   library_busy_ms=library_busy_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         print("[kernel] " + json.dumps(row), flush=True)
-        if not (err_out <= tol_out and err_lse <= tol_lse):
+        if not (err_out <= tol_out and err_lse <= tol_lse and bitwise):
             raise AssertionError(
                 f"flash_attention_fwd disagrees with its plain version on "
                 f"{name}: out {err_out:.3g} (tol {tol_out}), lse "
-                f"{err_lse:.3g} (tol {tol_lse})")
+                f"{err_lse:.3g} (tol {tol_lse}), bitwise repeat {bitwise}")
         rows.append(row)
         del q, k, v, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
 // the causal / sliding-window band, mma.sync and ldmatrix fragment access,
-// and cp.async tile copies into shared memory.
+// and cp.async tile copies into shared memory (the backward kernels). The
+// Hopper pieces (TMA, mbarriers, wgmma) are in hopper.cuh.
 //
 // Fragment layouts of mma.sync m16n8k16 (bf16 in, f32 accumulate), for a
 // lane l with r0 = l / 4 and cq = (l % 4) * 2:
@@ -70,10 +71,6 @@ __device__ __forceinline__ void live_tiles(const P& p, int q0, int bm, int bn, i
 // ---------------------------------------------------------------------------
 // tensor-core fragments
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-    return *reinterpret_cast<const uint32_t*>(ptr);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
     __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);

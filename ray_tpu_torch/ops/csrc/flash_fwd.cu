@@ -13,18 +13,25 @@
 // What bounds it on an H100: at the model's shapes (L = 2048, D = 128) the
 // two matrix products do ~L/2 multiply-adds per byte of q/k/v, far above the
 // card's ~295 FLOP/byte ridge, so the kernel is bound by tensor-core
-// operations. The design keeps everything between the two products on chip
-// and keeps the tensor cores fed: one CTA owns one (batch, q head, 64-row q
-// tile); Q stays in registers as mma fragments; K and V tiles of 64 rows
-// stream through a two-stage shared-memory ring filled by cp.async, so the
-// next tile's copy overlaps this tile's products; the running max m, sum l
-// and the 64 x D accumulator stay in float32 registers (online softmax), so
-// the [Lq, Lk] scores never reach device memory. Tiles wholly outside the
-// causal / window band are never loaded (the same predicate as the TPU
-// kernel's _block_band), and tiles wholly inside it skip the per-element
-// mask. The products run on the tensor cores through mma.sync m16n8k16 (bf16
-// in, f32 accumulate) with ldmatrix fragment loads; wgmma, TMA and warp
-// specialisation are later work.
+// operations, which only wgmma reaches at full rate. The bf16 design keeps
+// the tensor cores fed and everything between the two products on chip:
+// - one CTA owns one (batch, q head, 128-row q tile): warpgroups 0 and 1
+//   consume 64 rows each, warpgroup 2 is the producer (setmaxnreg moves the
+//   producer's registers to the consumers);
+// - one thread of the producer issues the TMA copies: Q once, then K and V tiles of 128
+//   rows into a two-stage ring (128-byte swizzled slabs, hopper.cuh), each
+//   stage with a full and an empty mbarrier for K and for V, so K of the next
+//   tile loads while this tile's softmax and PV product run;
+// - S = Q K^T and O += P V run as wgmma m64nNk16 (bf16 in, f32 accumulate):
+//   Q, K and V straight from the swizzled slabs, P from registers in bf16;
+//   the two consumer warpgroups run independently, so one's softmax can
+//   overlap the other's products;
+// - the running max, row sums and the 64 x D accumulator stay in f32
+//   registers (online softmax), so the [Lq, Lk] scores never reach device
+//   memory; only tiles the band's edge or the ragged end cut take the
+//   per-element mask, and tiles wholly outside the band are never loaded
+//   (the TPU kernel's _block_band predicate, live_tiles here);
+// - the q tiles with the most causal work are launched first.
 //
 // float32 inputs take a CUDA-core path (exact f32 FMAs) so the float32 model
 // configurations keep float32 attention; it exists for parity, not speed.
@@ -35,9 +42,11 @@
 // With -inf that rescale would be NaN.
 //
 // The host function launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// returns cudaGetLastError(); for bf16 it first encodes the three tensor
+// maps (pointers change every call).
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 struct FwdParams {
     const void* q;
@@ -57,198 +66,281 @@ struct FwdParams {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: wgmma on TMA-fed tiles; a producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-// (x0, x1) ~= hi + lo, each a bf16 pair: 16 significant bits for P in the PV
-// product, as against 8 for a single bf16
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
-    __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-    hi = *reinterpret_cast<uint32_t*>(&h);
-    lo = *reinterpret_cast<uint32_t*>(&l);
+constexpr int kConsumers = 2;     // consumer warpgroups
+constexpr int kBM = 64 * kConsumers;  // q rows per CTA: 64 per consumer warpgroup
+constexpr int kBN = 128;          // kv rows per tile
+constexpr int kBf16Threads = 128 * (kConsumers + 1);  // the last warpgroup produces
+constexpr int kStages = 2;        // K and V tiles in flight
+// setmaxnreg: 24 * 128 + 240 * 256 = 64512 <= 65536 registers. (ptxas still
+// compiles the consumers within the launch bound of 168 a thread.)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dynamic shared memory, in bytes from a 1024-aligned base: Q (D / 64
+// swizzled slabs of kBM rows), the K and V rings (each tile D / 64 slabs of
+// kBN rows), the mbarriers
+template <int D>
+struct FwdSmem {
+    static constexpr int kQSlabBytes = kBM * 128;
+    static constexpr int kSlabBytes = kBN * 128;
+    static constexpr int kQBytes = kBM * D * 2;
+    static constexpr int kTileBytes = kBN * D * 2;
+    static constexpr int kQ = 0;
+    static constexpr int kK = kQ + kQBytes;
+    static constexpr int kV = kK + kStages * kTileBytes;
+    static constexpr int kBars = kV + kStages * kTileBytes;
+    static constexpr int kNumBars = 1 + 4 * kStages;  // Q full; K, V full and empty
+    static constexpr size_t kBytes = kBars + 8 * kNumBars + 1024;  // + alignment slack
+};
+
+// --- the consumer warpgroup's steps. Stage and phase of kv tile i: stage
+// i % kStages, phase parity (i / kStages) & 1.
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
 }
 
-constexpr int kBM = 64;       // q rows per CTA (16 per warp)
-constexpr int kBN = 64;       // kv rows per tile
-constexpr int kThreads = 128;  // 4 warps
-
+// issue S = Q K^T (64 x 128) for the K tile at ``k_tile``: Q and K K-major
+// in shared memory
 template <int D>
-constexpr size_t bf16_smem_bytes() {  // Q tile + two stages of K and V tiles
-    return size_t(kBM + 4 * kBN) * (D + kPad) * sizeof(__nv_bfloat16);
+__device__ __forceinline__ void issue_qk(float (&acc)[kBN / 2], uint32_t q_addr, uint32_t k_tile) {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;  // k-steps 4..7 in the second slab
+        wgmma_m64n128k16_ss(
+            acc, wgmma_desc_b128(q_addr + (ks / 4) * FwdSmem<D>::kQSlabBytes + col, 16, 1024),
+            wgmma_desc_b128(k_tile + (ks / 4) * FwdSmem<D>::kSlabBytes + col, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+}
+
+// issue O += P V for the V tile at ``v_tile``: P from registers, V MN-major
+// in shared memory
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t v_tile) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t vd = wgmma_desc_b128(v_tile + kk * 16 * 128, FwdSmem<D>::kSlabBytes, 1024);
+        if constexpr (D == 128)
+            wgmma_m64n128k16_rs_tb(o, pa[kk], vd);
+        else
+            wgmma_m64n64k16_rs_tb(o, pa[kk], vd);
+    }
+    wgmma_commit();
+}
+
+// this warp is done with stage i % kStages of a ring (after the wgmma_wait
+// of the product that read it): one arrival a warp
+__device__ __forceinline__ void release(uint64_t* empty, int i, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + i % kStages);
+}
+
+// One tile of the online softmax for this thread's rows ``rows``: turns the
+// raw products in ``acc`` (kv columns k0..k0 + 127) into unnormalised f32
+// probabilities in place, updates the running max ``m2`` (log2 units) and
+// the row sums ``l``, and returns in ``alpha`` the factor by which the
+// accumulator rows must be rescaled. Only a tile that the band's edge or the
+// ragged end cuts for these 64 rows (from qw) takes the per-element mask.
+template <class P>
+__device__ __forceinline__ void softmax_tile(const P& p, float (&acc)[kBN / 2], float (&m2)[2],
+                                             float (&l)[2], float (&alpha)[2], int k0, int qw,
+                                             const int (&rows)[2], int cq) {
+    const bool inside = k0 + kBN <= p.Lk && (!p.causal || k0 + kBN - 1 <= qw) &&
+                        (p.window <= 0 || qw + 63 - k0 < p.window);
+    float to_log2 = p.scale * kLog2e;  // from acc to log2 units
+    if (p.softcap > 0.f || !inside) {
+        // scores in log2 units: scale, softcap (before the mask), mask
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) {
+            acc[j] = capped(p, acc[j]) * kLog2e;
+            if (!inside && !visible(p, rows[(j >> 1) & 1], k0 + 8 * (j / 4) + cq + (j & 1)))
+                acc[j] = NEG_INF;
+        }
+        to_log2 = 1.f;
+    }
+    float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) mt[(j >> 1) & 1] = fmaxf(mt[(j >> 1) & 1], acc[j]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(m2[r], mt[r] * to_log2);
+        alpha[r] = ex2(m2[r] - m_new);
+        m2[r] = m_new;
+        l[r] *= alpha[r];
+    }
+    // with to_log2 = 1 the fma is exact: masked scores give
+    // NEG_INF - NEG_INF = 0 (fake mass, see above), never NaN
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) {
+        acc[j] = ex2(fmaf(acc[j], to_log2, -m2[(j >> 1) & 1]));
+        l[(j >> 1) & 1] += acc[j];
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[j] *= alpha[(j >> 1) & 1];
+}
+
+// P in bf16 as the register A operand: the probabilities of columns
+// 16kk..16kk+15 are acc[8kk..8kk+7]
+__device__ __forceinline__ void pack_p(const float (&acc)[kBN / 2], uint32_t (&pa)[kBN / 16][4]) {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(const __grid_constant__ FwdParams p) {
-    constexpr int LD = D + kPad;
-    constexpr int KS = D / 16;    // k-steps of the QK^T product
-    constexpr int NT = kBN / 8;   // 8-column tiles of S
-    constexpr int OT = D / 8;     // 8-column tiles of O
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* sK = sQ + kBM * LD;      // two stages
-    __nv_bfloat16* sV = sK + 2 * kBN * LD;  // two stages
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ FwdParams p,
+                          const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv) {
+    using S = FwdSmem<D>;
+    constexpr int kSlabs = D / 64;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+    uint64_t* k_full = q_full + 1;
+    uint64_t* v_full = k_full + kStages;
+    uint64_t* k_empty = v_full + kStages;
+    uint64_t* v_empty = k_empty + kStages;
 
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    // heaviest causal q tiles first: blockIdx.x counts down the q tiles
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
     const int h = blockIdx.y, b = blockIdx.z;
     const int hk = h / (p.H / p.Hk);
-    const int q0 = blockIdx.x * kBM;
-    const __nv_bfloat16* Q =
-        static_cast<const __nv_bfloat16*>(p.q) + int64_t(b) * p.q_sb + int64_t(h) * p.q_sh;
-    const __nv_bfloat16* K =
-        static_cast<const __nv_bfloat16*>(p.k) + int64_t(b) * p.k_sb + int64_t(hk) * p.k_sh;
-    const __nv_bfloat16* V =
-        static_cast<const __nv_bfloat16*>(p.v) + int64_t(b) * p.v_sb + int64_t(hk) * p.v_sh;
-
     int kt_begin, kt_end;
     live_tiles(p, q0, kBM, kBN, &kt_begin, &kt_end);
-    load_tile_async<D, kBM, kThreads>(sQ, Q, p.q_sl, q0, p.Lq);
-    if (kt_begin < kt_end) {
-        load_tile_async<D, kBN, kThreads>(sK, K, p.k_sl, kt_begin * kBN, p.Lk);
-        load_tile_async<D, kBN, kThreads>(sV, V, p.v_sl, kt_begin * kBN, p.Lk);
+    const int n_tiles = max(kt_end - kt_begin, 0);
+
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(k_full + s, 1);
+            mbar_init(v_full + s, 1);
+            mbar_init(k_empty + s, 4 * kConsumers);  // one arrival a consumer warp
+            mbar_init(v_empty + s, 4 * kConsumers);
+        }
+        mbar_fence_init();
     }
-    cp_async_commit();
-    cp_async_wait<0>();
     __syncthreads();
 
-    // this thread's rows in the tile: r0 and r0 + 8; its column pair: cq, cq + 1
-    const int r0 = warp * 16 + lane / 4;
-    const int cq = (lane % 4) * 2;
-    uint32_t qf[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-        qf[ks][0] = ld32(sQ + r0 * LD + ks * 16 + cq);
-        qf[ks][1] = ld32(sQ + (r0 + 8) * LD + ks * 16 + cq);
-        qf[ks][2] = ld32(sQ + r0 * LD + ks * 16 + cq + 8);
-        qf[ks][3] = ld32(sQ + (r0 + 8) * LD + ks * 16 + cq + 8);
-    }
-
-    float o[OT][4];
-#pragma unroll
-    for (int t = 0; t < OT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-    float m[2] = {NEG_INF, NEG_INF};
-    float l[2] = {0.f, 0.f};  // this thread's partial row sums
-    const int rows[2] = {q0 + r0, q0 + r0 + 8};
-    // ldmatrix.x4 row address of this lane: matrix lane / 8, row lane % 8
-    const int mtx = lane / 8;
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * kBN;
-        const int stage = (kt - kt_begin) & 1;
-        const __nv_bfloat16* cK = sK + stage * kBN * LD;
-        const __nv_bfloat16* cV = sV + stage * kBN * LD;
-        if (kt + 1 < kt_end) {  // prefetch the next tile into the other stage
-            load_tile_async<D, kBN, kThreads>(sK + (stage ^ 1) * kBN * LD, K, p.k_sl, k0 + kBN, p.Lk);
-            load_tile_async<D, kBN, kThreads>(sV + (stage ^ 1) * kBN * LD, V, p.v_sl, k0 + kBN, p.Lk);
+    const int wg = threadIdx.x / 128;
+    if (wg == kConsumers) {
+        // producer: one thread issues every TMA copy; the rest of the
+        // warpgroup only gives its registers back
+        warpgroup_reg_dealloc<kProducerRegs>();
+        if (threadIdx.x == 128 * kConsumers && n_tiles > 0) {
+            mbar_arrive_expect_tx(q_full, S::kQBytes);
+            for (int c = 0; c < kSlabs; ++c)
+                tma_load_4d(smem + S::kQ + c * S::kQSlabBytes, &tq, q_full, c * 64, h, q0, b);
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % kStages;
+                const uint32_t parity = ((i / kStages) & 1) ^ 1;  // the first round passes
+                const int k0 = (kt_begin + i) * kBN;
+                unsigned char* sk = smem + S::kK + s * S::kTileBytes;
+                unsigned char* sv = smem + S::kV + s * S::kTileBytes;
+                mbar_wait(k_empty + s, parity);
+                mbar_arrive_expect_tx(k_full + s, S::kTileBytes);
+                for (int c = 0; c < kSlabs; ++c)
+                    tma_load_4d(sk + c * S::kSlabBytes, &tk, k_full + s, c * 64, hk, k0, b);
+                mbar_wait(v_empty + s, parity);
+                mbar_arrive_expect_tx(v_full + s, S::kTileBytes);
+                for (int c = 0; c < kSlabs; ++c)
+                    tma_load_4d(sv + c * S::kSlabBytes, &tv, v_full + s, c * 64, hk, k0, b);
+            }
         }
-        cp_async_commit();
-        cp_async_wait<1>();  // this tile has landed; the prefetch may still fly
-        __syncthreads();
+    } else {
+        warpgroup_reg_alloc<kConsumerRegs>();
+        const int cw = wg;  // this warpgroup's rows: q0 + 64 cw ..
+        const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+        const int qw = q0 + 64 * cw;
+        const int r0 = 16 * warp + lane / 4;  // rows r0 and r0 + 8 of the 64
+        const int cq = (lane % 4) * 2;        // columns cq, cq + 1 of each 8
+        const int rows[2] = {qw + r0, qw + r0 + 8};
+        const uint32_t q_addr = smem_u32(smem + S::kQ) + cw * 64 * 128;
+        const uint32_t k_addr = smem_u32(smem + S::kK);
+        const uint32_t v_addr = smem_u32(smem + S::kV);
 
-        // S = Q K^T for this warp's 16 rows x 64 columns; one ldmatrix.x4
-        // gives the B fragments of two 8-column tiles
-        float s[NT][4];
+        float o[D / 2];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        // running max of the scores in log2 units (score * log2 e) and the
+        // running row sums (this thread's partials)
+        float m2[2] = {NEG_INF, NEG_INF};
+        float l[2] = {0.f, 0.f};
+
+        // Each warpgroup runs S = Q K^T, the softmax and O += P V of a tile in
+        // turn. The producer keeps the next tiles in flight, and the two
+        // warpgroups share the tensor cores: one's softmax can run while the
+        // other's products do.
+        if (n_tiles > 0) {
+            float acc[kBN / 2];
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-            for (int np = 0; np < NT / 2; ++np) {
-                uint32_t kb[4];
-                ldmatrix_x4(kb, cK + (np * 16 + (mtx >> 1) * 8 + lane % 8) * LD + ks * 16 +
-                                    (mtx & 1) * 8);
-                mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
-                mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+            for (int j = 0; j < kBN / 2; ++j) acc[j] = 0.f;
+            float alpha[2];
+            mbar_wait(q_full, 0);
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % kStages;
+                const uint32_t parity = (i / kStages) & 1;
+                mbar_wait(k_full + s, parity);
+                issue_qk<D>(acc, q_addr, k_addr + s * S::kTileBytes);
+                wgmma_wait<0>();
+                fence_regs(acc);
+                release(k_empty, i, lane);
+                softmax_tile(p, acc, m2, l, alpha, (kt_begin + i) * kBN, qw, rows, cq);
+                rescale(o, alpha);
+                uint32_t pa[kBN / 16][4];
+                pack_p(acc, pa);
+                mbar_wait(v_full + s, parity);
+                issue_pv<D>(o, pa, v_addr + s * S::kTileBytes);
+                wgmma_wait<0>();
+                fence_regs(o);
+                release(v_empty, i, lane);
             }
         }
 
-        // scale, softcap, mask; then the online-softmax update in f32
-        const bool inside = k0 + kBN <= p.Lk && (!p.causal || k0 + kBN - 1 <= q0) &&
-                            (p.window <= 0 || q0 + kBM - 1 - k0 < p.window);
-        float mt[2] = {m[0], m[1]};
+        // finish: full row sums across the quad, normalise, write out and lse
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = k0 + nt * 8 + cq + (e & 1);
-                s[nt][e] = score(p, s[nt][e], rows[e >> 1], col, inside);
-                mt[e >> 1] = fmaxf(mt[e >> 1], s[nt][e]);
-            }
+        for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         }
-        float alpha[2];
+        __nv_bfloat16* O =
+            static_cast<__nv_bfloat16*>(p.o) + int64_t(b) * p.o_sb + int64_t(h) * p.o_sh;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-            mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-            alpha[i] = __expf(m[i] - mt[i]);
-            m[i] = mt[i];
-            l[i] *= alpha[i];
+        for (int r = 0; r < 2; ++r) {
+            if (rows[r] >= p.Lq) continue;
+            const float lr = l[r] == 0.f ? 1.f : l[r];  // rows that saw nothing -> 0
+            const float inv = 1.f / lr;
+            __nv_bfloat16* orow = O + int64_t(rows[r]) * p.o_sl;
+#pragma unroll
+            for (int i = 0; i < D / 8; ++i)
+                *reinterpret_cast<uint32_t*>(orow + 8 * i + cq) =
+                    pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+            // the max is kept in log2 units; a row that saw only masked
+            // scores keeps NEG_INF, as the plain version does
+            if (lane % 4 == 0)
+                p.lse[(int64_t(b) * p.H + h) * p.Lq + rows[r]] =
+                    m2[r] == NEG_INF ? NEG_INF : m2[r] / kLog2e + logf(lr);
         }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
-                l[e >> 1] += s[nt][e];
-            }
-        }
-#pragma unroll
-        for (int t = 0; t < OT; ++t) {
-            o[t][0] *= alpha[0];
-            o[t][1] *= alpha[0];
-            o[t][2] *= alpha[1];
-            o[t][3] *= alpha[1];
-        }
-
-        // O += P V: the S accumulators of column tiles 2j, 2j+1 are exactly
-        // the A fragment of k-step j; V^T fragments come from ldmatrix.trans.
-        // P enters as a bf16 hi + lo pair (two products), so the output
-        // matches the f32 softmax of the plain version to ~2^-16 instead of
-        // ~2^-9: the paged engine (plain attention) and the kernel-backed
-        // forward then round the same values, and greedy decoding agrees.
-#pragma unroll
-        for (int j = 0; j < kBN / 16; ++j) {
-            uint32_t a[4], a_lo[4];
-            split_bf16(s[2 * j][0], s[2 * j][1], a[0], a_lo[0]);
-            split_bf16(s[2 * j][2], s[2 * j][3], a[1], a_lo[1]);
-            split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], a[2], a_lo[2]);
-            split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], a[3], a_lo[3]);
-            const __nv_bfloat16* vrow =
-                cV + (j * 16 + (mtx & 1) * 8 + lane % 8) * LD + (mtx >> 1) * 8;
-#pragma unroll
-            for (int dt = 0; dt < D / 16; ++dt) {
-                uint32_t bv[4];
-                ldmatrix_x4_trans(bv, vrow + dt * 16);
-                mma_bf16(o[2 * dt], a, bv[0], bv[1]);
-                mma_bf16(o[2 * dt], a_lo, bv[0], bv[1]);
-                mma_bf16(o[2 * dt + 1], a, bv[2], bv[3]);
-                mma_bf16(o[2 * dt + 1], a_lo, bv[2], bv[3]);
-            }
-        }
-        __syncthreads();  // every warp is done with this stage before it is refilled
-    }
-
-    // finish: full row sums across the quad, normalise, write out and lse
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    }
-    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + int64_t(b) * p.o_sb + int64_t(h) * p.o_sh;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        if (rows[i] >= p.Lq) continue;
-        const float li = l[i] == 0.f ? 1.f : l[i];  // rows that saw nothing -> 0
-        const float inv = 1.f / li;
-        __nv_bfloat16* orow = O + int64_t(rows[i]) * p.o_sl;
-#pragma unroll
-        for (int t = 0; t < OT; ++t) {
-            *reinterpret_cast<uint32_t*>(orow + t * 8 + cq) =
-                pack_bf16(o[t][2 * i] * inv, o[t][2 * i + 1] * inv);
-        }
-        if (lane % 4 == 0)
-            p.lse[(int64_t(b) * p.H + h) * p.Lq + rows[i]] = m[i] + logf(li);
     }
 }
 
@@ -256,6 +348,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(const __grid_c
 // float32: CUDA cores, exact f32 arithmetic (the parity configurations)
 // ---------------------------------------------------------------------------
 
+constexpr int kThreads = 128;  // 4 warps
 constexpr int kF32BM = 16;  // q rows per CTA (4 per warp)
 constexpr int kF32BN = 32;  // kv rows per tile: one per lane
 
@@ -358,12 +451,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const __grid_co
 
 template <int D>
 static cudaError_t launch_bf16(const FwdParams& p, cudaStream_t stream) {
-    const size_t smem = bf16_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    CUtensorMap tq, tk, tv;
+    cudaError_t err = make_bf16_tile_map(&tq, p.q, p.B, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, kBM);
+    if (err == cudaSuccess)
+        err = make_bf16_tile_map(&tk, p.k, p.B, p.Lk, p.Hk, D, p.k_sb, p.k_sl, p.k_sh, kBN);
+    if (err == cudaSuccess)
+        err = make_bf16_tile_map(&tv, p.v, p.B, p.Lk, p.Hk, D, p.v_sb, p.v_sl, p.v_sh, kBN);
+    if (err != cudaSuccess) return err;
+    const size_t smem = FwdSmem<D>::kBytes;
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem));
     if (err != cudaSuccess) return err;
     dim3 grid((p.Lq + kBM - 1) / kBM, p.H, p.B);
-    flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    flash_fwd_bf16_kernel<D><<<grid, kBf16Threads, smem, stream>>>(p, tq, tk, tv);
     return cudaGetLastError();
 }
 

@@ -161,10 +161,13 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16-byte vectors: last dim contiguous, other strides
-    multiples of 8 elements, base 16-byte aligned; copy when not."""
-    if (t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
-            and t.data_ptr() % 16 == 0):
+    """The kernels read 16-byte vectors, the bf16 forward through TMA: the
+    last dim contiguous, the strides of the other dims positive multiples of
+    8 elements (16 bytes of bf16), the base 16-byte aligned; copy when not.
+    A dim of extent 1 never applies its stride, so any stride does there."""
+    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s % 8 == 0
+                    for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1)):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 

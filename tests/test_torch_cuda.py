@@ -70,6 +70,66 @@ def test_kernel_reads_strided_inputs(cuda):
     assert (lse - ref_lse).abs().max().item() <= 1e-2
 
 
+# the edges of the bf16 kernel's 128-row q and kv tiles: one row short of a
+# tile, a full tile, one row over, a full and a ragged tile; Lq != Lk
+# without the causal mask at D = 64
+# (B, Lq, Lk, H, Hk, D, causal)
+EDGE_CASES = [
+    (1, 127, 127, 4, 2, 128, True),
+    (1, 128, 128, 4, 2, 128, True),
+    (1, 129, 129, 4, 2, 128, True),
+    (2, 200, 200, 4, 1, 128, True),
+    (1, 129, 300, 4, 2, 64, False),
+    (1, 300, 129, 4, 4, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=str)
+def test_kernel_tile_edges(cuda, case):
+    b, lq, lk, h, hk, d, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q, k, v = rnd(b, lq, h, d) * 4, rnd(b, lk, hk, d), rnd(b, lk, hk, d)
+    out, lse = flash_cuda.flash_attention_fwd(q, k, v, causal=causal)
+    ref_out, ref_lse = flash_cuda.flash_attention_fwd_reference(
+        q, k, v, causal=causal)
+    tol_out, tol_lse = TOL[torch.bfloat16]
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_out
+    assert (lse - ref_lse).abs().max().item() <= tol_lse
+
+
+def test_kernel_reads_batch_and_head_strides(cuda):
+    """q a transposed view of [B, H, L, D], k/v every other head of a wider
+    tensor, and an expanded (stride-0) k that the wrapper copies."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 4, 200, 128, generator=gen, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)
+    kv = torch.randn(2, 200, 4, 128, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k, v = kv[:, :, ::2], kv[:, :, 1::2]
+    for kk in (k, k[:, :, :1].expand(2, 200, 2, 128)):
+        out, lse = flash_cuda.flash_attention_fwd(q, kk, v)
+        ref_out, ref_lse = flash_cuda.flash_attention_fwd_reference(q, kk, v)
+        assert (out.float() - ref_out.float()).abs().max().item() <= 2e-2
+        assert (lse - ref_lse).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_kernel_repeat_is_bitwise_equal(cuda, dtype):
+    """No atomics and a fixed order of sums: a repeat call gives the same
+    bits."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(2, 300, 4, 128, generator=gen, device=cuda).to(
+        dtype) for _ in range(3))
+    first = flash_cuda.flash_attention_fwd(q, k, v, window=100)
+    again = flash_cuda.flash_attention_fwd(q, k, v, window=100)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.randn(1, 16, 2, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):

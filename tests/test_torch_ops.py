@@ -469,3 +469,44 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
     _close(out, want)
     with pytest.raises(ValueError, match="window requires causal"):
         flash_cuda.flash_attention_fwd(q, k, v, causal=False, window=16)
+
+
+def test_kernel_layout_copies_only_what_the_kernels_cannot_read():
+    """``_kernel_layout`` keeps a view the kernels (TMA for the bf16
+    forward) can read in place and copies the rest, values unchanged."""
+    base = torch.arange(2 * 96 * 8 * 64, dtype=torch.float32).to(
+        torch.bfloat16)
+    qkv = base.view(2, 96, 8, 64)
+    keep = [qkv, qkv[:, :, :4], qkv[:, :, 6:],
+            # extent-1 batch and head dims with strides TMA could not take
+            base.as_strided((1, 96, 1, 64), (5, 512, 3, 1))]
+    for t in keep:
+        assert flash_cuda._kernel_layout(t) is t
+    copy = [qkv.transpose(1, 2).transpose(1, 3),        # last dim strided
+            qkv[:, :, :1].expand(2, 96, 4, 64),          # zero head stride
+            base.as_strided((1, 96, 2, 64), (0, 130, 64, 1)),  # row stride
+            base[1:].as_strided((1, 96, 2, 64), (0, 128, 64, 1))]  # base
+    for t in copy:
+        got = flash_cuda._kernel_layout(t)
+        assert got is not t and got.is_contiguous() and torch.equal(got, t)
+
+
+def test_forward_kernel_variants_patch_the_source(tmp_path):
+    """Each variant of ``experiments/torch_flash_fwd_variants.py`` still
+    finds, exactly once, the lines of ``flash_fwd.cu`` it replaces."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "torch_flash_fwd_variants",
+        root / "experiments" / "torch_flash_fwd_variants.py")
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    csrc = root / "ray_tpu_torch" / "ops" / "csrc"
+    source = (csrc / "flash_fwd.cu").read_text()
+    for name, patches in variants.VARIANTS.items():
+        out = variants.variant_source(name, csrc, tmp_path / name)
+        patched = (out / "flash_fwd.cu").read_text()
+        assert (patched == source) == (not patches), name
+        assert (out / "hopper.cuh").exists()
