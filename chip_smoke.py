@@ -6,16 +6,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA sources with nvcc from this checkout;
-   print ptxas's registers and spills, and the wgmma (HGMMA) and TMA
-   (UTMALDG) instructions in the bf16 forward kernel's SASS;
+   print ptxas's registers and spills (none allowed in a bf16 kernel), and
+   the wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA) instructions in the
+   bf16 kernels' SASS (the backward kernels must run wgmma on TMA-loaded
+   tiles and no mma.sync);
 3. kernels: hold each kernel against its plain PyTorch version on the card,
    at the shapes the model runs, and against itself (a repeat call is
    bitwise equal); time kernel, plain version, the PyTorch library call
    that computes the same function (one call between events, and calls
    back to back), and the bound;
 4. backward kernels: dQ and dK/dV against their plain version on the same
-   cases, bitwise equal on a repeat call, timed beside the backward of
-   PyTorch's SDPA and their bound;
+   cases, bitwise equal on a repeat call, timed (one call between events,
+   and calls back to back) beside the backward of PyTorch's SDPA and their
+   bound;
 5. forward: a small float32 forward on the card against the CPU, then
    ``models.forward`` at Llama-3-8B width (random bf16 weights from a
    seeded generator, all 32 layers) through the flash-attention kernel;
@@ -160,16 +163,24 @@ def _sass_counts(so, kernel, opcodes):
     return counts
 
 
+def _spills(info):
+    """Bytes of spill stores plus loads in a ptxas table entry."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill", info))
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     dt = time.perf_counter() - t0
     print(f"[build] {len(_build.SOURCES)} source(s) in {dt:.1f} s", flush=True)
+    spilled = []
     for source, log in _build.build_log.items():
         for kernel, info in _ptxas_table(log).items():
             print(f"[build] {source}.cu {kernel}: {info}", flush=True)
+            if "bf16" in kernel and _spills(info):
+                spilled.append(kernel)
         for line in log.splitlines():
-            if "warning" in line.lower():
+            if "warning" in line.lower() or "Performance Loss" in line:
                 print(f"[build] {source}.cu: {line.strip()}", flush=True)
     # the bf16 forward runs wgmma (HGMMA) on tiles that TMA (UTMALDG) loads
     counts = _sass_counts(libs["flash_fwd"], "flash_fwd_bf16_kernel",
@@ -179,6 +190,21 @@ def phase_build():
               "cuobjdump)", flush=True)
     for fn, ops in (counts or {}).items():
         print(f"[build] SASS of {fn}: {json.dumps(ops)}", flush=True)
+    # so do the bf16 backward kernels, with no mma.sync (HMMA) left
+    wrong = []
+    for kernel in ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"):
+        counts = _sass_counts(libs["flash_bwd"], kernel,
+                              ("HGMMA", "UTMALDG", "HMMA"))
+        if counts is None:
+            print(f"[build] SASS of {kernel}: not available (no cuobjdump)",
+                  flush=True)
+        for fn, ops in (counts or {}).items():
+            print(f"[build] SASS of {fn}: {json.dumps(ops)}", flush=True)
+            if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
+                wrong.append(fn)
+    if spilled or wrong:
+        raise AssertionError(f"bf16 kernels that spill: {spilled}; backward "
+                             f"kernels without wgmma on TMA tiles: {wrong}")
 
 
 # (name, B, Lq, Lk, H, Hk, D, dtype, causal, window, softcap)
@@ -401,11 +427,13 @@ def phase_bwd_kernels(cases=BWD_CASES):
         run_dq, run_dkv, _ = flash_cuda._bwd_launchers(q, k, v, out, lse,
                                                         dout, **kw)
         dq_ms, dkv_ms = _median_ms(run_dq), _median_ms(run_dkv)
+        dq_busy_ms, dkv_busy_ms = _busy_ms(run_dq), _busy_ms(run_dkv)
         plain_ms = _median_ms(
             lambda: flash_cuda.flash_attention_bwd_reference(
                 q, k, v, out, lse, dout, **kw), iters=3, warmup=1)
         lib = _library_bwd(q, k, v, causal, window, softcap, gen)
         library_ms = _median_ms(lib) if lib is not None else None
+        library_busy_ms = _busy_ms(lib) if lib is not None else None
         del lib
         (dkv_bound, dkv_by), (dq_bound, dq_by), (bound_ms, bound_by) = \
             _bwd_bounds(q, k, causal, window)
@@ -416,8 +444,10 @@ def phase_bwd_kernels(cases=BWD_CASES):
                    max_abs_err=dict(dq=abs_errs[0],
                                     dkv=max(abs_errs[1:])),
                    tol=BWD_TOL[dtype], bitwise_repeat=bitwise,
-                   dkv_ms=dkv_ms, dq_ms=dq_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, dkv_bound_ms=dkv_bound,
+                   dkv_ms=dkv_ms, dq_ms=dq_ms, dkv_busy_ms=dkv_busy_ms,
+                   dq_busy_ms=dq_busy_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_busy_ms=library_busy_ms,
+                   dkv_bound_ms=dkv_bound,
                    dkv_bound_by=dkv_by, dq_bound_ms=dq_bound,
                    dq_bound_by=dq_by, bound_ms=bound_ms, bound_by=bound_by)
         print("[bwd-kernel] " + json.dumps(row), flush=True)

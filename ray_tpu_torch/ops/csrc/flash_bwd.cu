@@ -21,37 +21,64 @@
 // What bounds them on an H100: 7 matrix products per (q tile, kv tile) pair
 // between them (dQ: Q K^T, dO V^T, dS K; dK/dV: K Q^T, V dO^T, P^T dO,
 // dS^T Q), ~L/2 multiply-adds per byte of input at L = 4096: tensor-core
-// operations. The design keeps every [q, kv] intermediate in registers:
+// operations, which only wgmma reaches at full rate. FlashAttention-2/3
+// fuse dQ into the dK/dV sweep (5 products) with f32 atomics; the split
+// here, as in the TPU reference, keeps the sums in one fixed order. The bf16
+// design, shared by the two kernels, keeps every [q, kv] intermediate in
+// registers and the tensor cores fed from shared memory:
 //
-// - dQ (flash_bwd_dq_*): one CTA owns (batch, q head, 64-row q tile); Q and
-//   dO stay in shared memory, K/V tiles of 64 rows stream through a
-//   two-stage cp.async ring; 4 warps own 16 q rows each and hold dQ in f32
-//   registers. S and dP are accumulators; dS is rounded to bf16 in place
-//   and feeds the dS K product from registers. The kernel also writes
-//   D = rowsum(dO * O) for its rows (the reference computes it in XLA
-//   before the two sweeps); it therefore runs first.
-// - dK/dV (flash_bwd_dkv_*): one CTA owns (batch, kv head, 64-row kv tile)
-//   and walks every q head of the group and, for each, the q tiles that
-//   intersect the band (the TPU grid's sequential t = g * nq + qi axis
-//   becomes this loop). K and V stay in shared memory; Q, dO, lse and D
-//   tiles stream through a two-stage cp.async ring; 4 warps own 16 kv rows
-//   each and hold dK and dV in f32 registers. The scores are computed
-//   transposed (kv rows x q columns), so P^T and dS^T feed the two
-//   accumulating products from registers. At head dim 128 a step takes 32
-//   q rows (two 64-float accumulators a thread already), at 64 it takes 64.
+// - a CTA owns 128 rows of one (batch, head) and is two warpgroups of 64
+//   rows each, with up to 255 registers a thread: enough for two 64 x D f32
+//   accumulators beside two score tiles. A separate producer warp or
+//   warpgroup would cut that to 168 (see kBf16Threads), so warp 0 also
+//   issues the copies: TMA (128-byte swizzled slabs, hopper.cuh), and
+//   cp.async for the dK/dV kernel's lse and D rows;
+// - the owned rows stay resident in shared memory; the other side streams
+//   through a ring of stages, each with a full and an empty mbarrier;
+// - scores and their gradients are wgmma accumulators (ss: both operands
+//   K-major from the slabs); P and dS are rounded to bf16 in registers and
+//   feed the accumulating products as the register A operand, with the
+//   streamed tile read MN-major through the transpose bit (as V in the
+//   forward's P V);
+// - accumulators stay in f32 registers and are rounded once, at the end;
+// - a tile that the band's edge or the ragged end cuts takes the
+//   per-element mask; a tile wholly outside one warpgroup's band is skipped
+//   by that warpgroup; tiles wholly outside the CTA's band are never loaded.
+//
+// - dQ (flash_bwd_dq_*): a CTA owns (batch, q head, 128-row q tile): Q and
+//   dO resident, K and V tiles of kDqBN rows streaming. Per tile:
+//   S = Q K^T and dP = dO V^T (ss), P (times the softcap factor) computed
+//   while dP is in flight, dS = P (dP - D), dQ += dS K (K MN-major). It also
+//   computes D = rowsum(dO * O) for its rows while the first tiles load and
+//   writes it out (the TPU wrapper computes it in XLA before the two
+//   sweeps), so it runs first.
+// - dK/dV (flash_bwd_dkv_*): a CTA owns (batch, kv head, 128-row kv tile):
+//   K and V resident; Q and dO tiles of kDkvBM rows stream, with their lse
+//   and D rows, which warp 0's lanes copy into the same stage.
+//   The ring walks every q head of the group and, for each, the q tiles
+//   that intersect the band (the TPU grid's sequential t = g * nq + qi axis
+//   becomes this loop). Per step: S^T = K Q^T and dP^T = V dO^T (ss), P^T
+//   and dS^T in registers, dV += P^T dO and dK += dS^T Q (dO, Q MN-major).
+// - order: the tiles with the most causal work launch first. The dK/dV
+//   kernel takes them first across every (batch, kv head): the kv tile is
+//   the grid's slowest axis, so no late head's heavy tiles are left for a
+//   last, half-empty wave. The dQ kernel takes them first within each
+//   (batch, head), whose CTAs then run side by side on the same K and V;
+//   each order measured faster for its own kernel
+//   (experiments/torch_flash_bwd_variants.py).
 //
 // P and dS enter their products as plain bf16 (8 significant bits), as in
-// FlashAttention-2; the gradients are held to 2e-2 of their largest
-// magnitude against the float32 plain version. (The forward feeds P as a
-// bf16 hi + lo pair so its output agrees with the serving engine's f32
-// softmax; no such parity rides on the gradients.) Products accumulate in
-// f32 and each output is rounded to the input dtype once, at the end.
+// FlashAttention-2/3 and the forward; the gradients are held to 2e-2 of their
+// largest magnitude against the float32 plain version. Products accumulate
+// in f32 and each output is rounded to the input dtype once, at the end.
 //
 // float32 inputs take CUDA-core paths with exact f32 FMAs (parity, not
 // speed), as the forward does. The host functions launch on the caller's
-// stream, allocate nothing and return cudaGetLastError().
+// stream, allocate nothing and return cudaGetLastError(); for bf16 they
+// first encode the four tensor maps (pointers change every call).
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 struct BwdParams {
     const void* q;
@@ -99,366 +126,500 @@ __device__ __forceinline__ void live_q_tiles(const BwdParams& p, int k0, int bn,
     *end = e;
 }
 
-// 4-byte global -> shared copy; pred false writes 0 and reads nothing
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool pred) {
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
-                 "r"(pred ? 4 : 0));
-}
-
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kThreads = 128;  // the f32 kernels: 4 warps
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: wgmma on TMA-fed tiles; two warpgroups, whose warp 0 also loads
 // ---------------------------------------------------------------------------
 
-constexpr int kQ = 64;   // dQ: q rows per CTA (16 per warp)
-constexpr int kK = 64;   // dQ: kv rows per tile
-constexpr int kKV = 64;  // dK/dV: kv rows per CTA (16 per warp)
+constexpr int kWarpgroups = 2;
+constexpr int kRows = 64 * kWarpgroups;  // rows a CTA owns: 64 a warpgroup
+// The SM's 65,536 registers are four quadrants of 16,384, and a CTA's warps
+// are dealt over them in turn. With 9 to 12 warps a quadrant holds 3, and
+// ptxas compiles every thread within 168 registers (setmaxnreg does not
+// lift that), so a producer warp costs as much as a producer warpgroup. The
+// kernels hold a 64 x D f32 accumulator or two beside two score tiles: more
+// than 168 at D = 128. So a CTA is the two warpgroups alone (2 warps a
+// quadrant: up to 255 registers), and warp 0 also loads: the first round
+// of the ring up front, then at the end of step i step i + stages into
+// the stage of step i, once both warpgroups have released it. The refill
+// stays out of the span in which a wgmma is in flight: warp-divergent code
+// there makes ptxas serialise the wgmma (C7518).
+constexpr int kBf16Threads = 128 * kWarpgroups;
+constexpr int kDqBN = 128;     // dQ: kv rows of a streamed K / V tile
+constexpr int kDqStages = 2;   // dQ: K and V tiles in flight
+constexpr int kDkvBM = 64;     // dK/dV: q rows of a streamed Q / dO tile
+constexpr int kDkvStages = 2;  // dK/dV: Q and dO tiles in flight
 
+// Dynamic shared memory of the dQ kernel, in bytes from a 1024-aligned
+// base: Q and dO (D / 64 slabs of kRows rows each), the K and V rings (each
+// tile D / 64 slabs of kDqBN rows), D of the CTA's rows, the mbarriers.
 template <int D>
-struct DkvTile {  // dK/dV: q rows per step, sized so dK, dV, S and dP fit in registers
-    static constexpr int BQ = D > 64 ? 32 : 64;
+struct DqSmem {
+    static constexpr int kResSlab = kRows * 128;
+    static constexpr int kTileSlab = kDqBN * 128;
+    static constexpr int kResBytes = kRows * D * 2;
+    static constexpr int kTileBytes = kDqBN * D * 2;
+    static constexpr int kQ = 0;
+    static constexpr int kDO = kQ + kResBytes;
+    static constexpr int kK = kDO + kResBytes;
+    static constexpr int kV = kK + kDqStages * kTileBytes;
+    static constexpr int kDelta = kV + kDqStages * kTileBytes;
+    static constexpr int kBars = kDelta + kRows * 4;
+    static constexpr int kNumBars = 1 + 2 * kDqStages;  // Q + dO full; stage full and empty
+    static constexpr size_t kBytes = kBars + 8 * kNumBars + 1024;  // + alignment slack
 };
 
+// Dynamic shared memory of the dK/dV kernel: K and V (D / 64 slabs of
+// kRows rows each), the Q and dO rings (each tile D / 64 slabs of kDkvBM
+// rows), the lse and D rings (kDkvBM floats a stage), the mbarriers.
 template <int D>
-constexpr size_t dq_smem_bytes() {  // Q, dO + two stages of K and V
-    return size_t(2 * kQ + 4 * kK) * (D + kPad) * sizeof(__nv_bfloat16);
+struct DkvSmem {
+    static constexpr int kResSlab = kRows * 128;
+    static constexpr int kTileSlab = kDkvBM * 128;
+    static constexpr int kResBytes = kRows * D * 2;
+    static constexpr int kTileBytes = kDkvBM * D * 2;
+    static constexpr int kK = 0;
+    static constexpr int kV = kK + kResBytes;
+    static constexpr int kQ = kV + kResBytes;
+    static constexpr int kDO = kQ + kDkvStages * kTileBytes;
+    static constexpr int kL = kDO + kDkvStages * kTileBytes;
+    static constexpr int kD = kL + kDkvStages * kDkvBM * 4;
+    static constexpr int kBars = kD + kDkvStages * kDkvBM * 4;
+    static constexpr int kNumBars = 1 + 2 * kDkvStages;  // K + V full; stage full and empty
+    static constexpr size_t kBytes = kBars + 8 * kNumBars + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                            ~uintptr_t(1023));
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {  // K, V + two stages of Q, dO, lse, D
-    return size_t(2 * kKV + 4 * DkvTile<D>::BQ) * (D + kPad) * sizeof(__nv_bfloat16) +
-           4 * DkvTile<D>::BQ * sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16_kernel(const __grid_constant__ BwdParams p) {
-    constexpr int LD = D + kPad;
-    constexpr int KS = D / 16;  // k-steps of the QK^T and dO V^T products
-    constexpr int NT = kK / 8;  // 8-column tiles of S and dP
-    constexpr int OT = D / 8;   // 8-column tiles of dQ
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* sdO = sQ + kQ * LD;
-    __nv_bfloat16* sK = sdO + kQ * LD;      // two stages
-    __nv_bfloat16* sV = sK + 2 * kK * LD;  // two stages
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / (p.H / p.Hk);
-    const int q0 = blockIdx.x * kQ;
-    const __nv_bfloat16* Q =
-        static_cast<const __nv_bfloat16*>(p.q) + int64_t(b) * p.q_sb + int64_t(h) * p.q_sh;
-    const __nv_bfloat16* dO =
-        static_cast<const __nv_bfloat16*>(p.dout) + int64_t(b) * p.do_sb + int64_t(h) * p.do_sh;
-    const __nv_bfloat16* O =
-        static_cast<const __nv_bfloat16*>(p.o) + int64_t(b) * p.o_sb + int64_t(h) * p.o_sh;
-    const __nv_bfloat16* K =
-        static_cast<const __nv_bfloat16*>(p.k) + int64_t(b) * p.k_sb + int64_t(hk) * p.k_sh;
-    const __nv_bfloat16* V =
-        static_cast<const __nv_bfloat16*>(p.v) + int64_t(b) * p.v_sb + int64_t(hk) * p.v_sh;
-    const int64_t row_base = (int64_t(b) * p.H + h) * p.Lq;  // into lse and D
-
-    int kt_begin, kt_end;
-    live_tiles(p, q0, kQ, kK, &kt_begin, &kt_end);
-    load_tile_async<D, kQ, kThreads>(sQ, Q, p.q_sl, q0, p.Lq);
-    load_tile_async<D, kQ, kThreads>(sdO, dO, p.do_sl, q0, p.Lq);
-    if (kt_begin < kt_end) {
-        load_tile_async<D, kK, kThreads>(sK, K, p.k_sl, kt_begin * kK, p.Lk);
-        load_tile_async<D, kK, kThreads>(sV, V, p.v_sl, kt_begin * kK, p.Lk);
+// issue acc = A B^T (64 x N) over D columns: A the 64 rows at ``a``, B the
+// N rows at ``b``, both K-major, their 64-column slabs ``a_slab`` and
+// ``b_slab`` bytes apart
+template <int N, int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a, int a_slab, uint32_t b,
+                                         int b_slab) {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;  // k-steps 4..7 in the second slab
+        wgmma_ss<N>(acc, wgmma_desc_b128(a + (ks / 4) * a_slab + col, 16, 1024),
+                    wgmma_desc_b128(b + (ks / 4) * b_slab + col, 16, 1024), ks > 0);
     }
-    cp_async_commit();
+    wgmma_commit();
+}
 
-    // this thread's rows in the tile: r0 and r0 + 8; its column pair: cq, cq + 1
-    const int r0 = warp * 16 + lane / 4;
-    const int cq = (lane % 4) * 2;
-    const int rows[2] = {q0 + r0, q0 + r0 + 8};
+// issue acc += A T (64 x D): A (64 x K) bf16 in registers, T the K x D tile
+// at ``t`` read MN-major, its 64-column slabs ``t_slab`` bytes apart
+template <int K, int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         uint32_t t, int t_slab) {
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+        wgmma_rs_tb<D>(acc, a[kk], wgmma_desc_b128(t + kk * 16 * 128, t_slab, 1024));
+}
 
-    // D = rowsum(dO * O) of the warp's 16 rows, from global memory while the
-    // tiles land; written out for the dK/dV kernel
-    float dl[2] = {0.f, 0.f};
-    for (int r = 0; r < 16; ++r) {
-        const int row = q0 + warp * 16 + r;
+// this warp is done with stage i % STAGES of a ring (after the wgmma_wait
+// of the product that read it): one arrival a warp
+template <int STAGES>
+__device__ __forceinline__ void release(uint64_t* empty, int i, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + i % STAGES);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// write rows ``rows`` (this thread's two) of a 64 x D f32 accumulator,
+// times ``scale``, as bf16 to ``out`` (row stride ``ld``); rows >= n skipped
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, int64_t ld, const float (&acc)[D / 2],
+                                           const int (&rows)[2], int n, int cq, float scale) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        if (rows[r] >= n) continue;
+        __nv_bfloat16* row = out + int64_t(rows[r]) * ld;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+            *reinterpret_cast<uint32_t*>(row + 8 * i + cq) =
+                pack_bf16(acc[4 * i + 2 * r] * scale, acc[4 * i + 2 * r + 1] * scale);
+    }
+}
+
+// D = rowsum(dO * O) of the 16 q rows from ``row0``, by one warp: each row's
+// 16-byte chunks spread over D / 8 lanes and summed by shuffles. Written to
+// ``out`` (16 floats, shared) and, for rows < Lq, to ``delta``.
+template <int D>
+__device__ __forceinline__ void delta_rows(const BwdParams& p, const __nv_bfloat16* dO,
+                                           const __nv_bfloat16* O, int row0, float* out,
+                                           float* delta, int lane) {
+    constexpr int CH = D / 8;     // 16-byte chunks a row
+    constexpr int RPI = 32 / CH;  // rows an iteration
+#pragma unroll
+    for (int it = 0; it < 16 / RPI; ++it) {
+        const int r = it * RPI + lane / CH, row = row0 + r, c = (lane % CH) * 8;
         float acc = 0.f;
         if (row < p.Lq) {
-#pragma unroll
-            for (int c = lane * 2; c < D; c += 64) {
-                const float2 x = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(dO + int64_t(row) * p.do_sl + c));
-                const float2 y = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(O + int64_t(row) * p.o_sl + c));
-                acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
-            }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        if (r == lane / 4) dl[0] = acc;
-        if (r == lane / 4 + 8) dl[1] = acc;
-        if (lane == 0 && row < p.Lq) p.delta[row_base + row] = acc;
-    }
-    const float lse[2] = {rows[0] < p.Lq ? p.lse[row_base + rows[0]] : 0.f,
-                          rows[1] < p.Lq ? p.lse[row_base + rows[1]] : 0.f};
-
-    float dq[OT][4];
-#pragma unroll
-    for (int t = 0; t < OT; ++t) dq[t][0] = dq[t][1] = dq[t][2] = dq[t][3] = 0.f;
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * kK;
-        const int stage = (kt - kt_begin) & 1;
-        const __nv_bfloat16* cK = sK + stage * kK * LD;
-        const __nv_bfloat16* cV = sV + stage * kK * LD;
-        if (kt + 1 < kt_end) {  // prefetch the next tile into the other stage
-            load_tile_async<D, kK, kThreads>(sK + (stage ^ 1) * kK * LD, K, p.k_sl, k0 + kK,
-                                             p.Lk);
-            load_tile_async<D, kK, kThreads>(sV + (stage ^ 1) * kK * LD, V, p.v_sl, k0 + kK,
-                                             p.Lk);
-        }
-        cp_async_commit();
-        cp_async_wait<1>();  // this tile (and Q, dO) has landed; the prefetch may still fly
-        __syncthreads();
-
-        // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 columns
-        float s[NT][4], dp[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-            dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        }
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-            uint32_t qa[4], da[4];
-            ldmatrix_a(qa, sQ, LD, warp * 16, ks * 16);
-            ldmatrix_a(da, sdO, LD, warp * 16, ks * 16);
-#pragma unroll
-            for (int np = 0; np < NT / 2; ++np) {
-                uint32_t kb[4], vb[4];
-                ldmatrix_bt(kb, cK, LD, np * 16, ks * 16);
-                mma_bf16(s[2 * np], qa, kb[0], kb[1]);
-                mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
-                ldmatrix_bt(vb, cV, LD, np * 16, ks * 16);
-                mma_bf16(dp[2 * np], da, vb[0], vb[1]);
-                mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
-            }
-        }
-
-        // dS = p * (dP - D) * cap factor, in place of S
-        const bool inside = k0 + kK <= p.Lk && (!p.causal || k0 + kK - 1 <= q0) &&
-                            (p.window <= 0 || q0 + kQ - 1 - k0 < p.window);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
+            const uint4 x = *reinterpret_cast<const uint4*>(dO + int64_t(row) * p.do_sl + c);
+            const uint4 y = *reinterpret_cast<const uint4*>(O + int64_t(row) * p.o_sl + c);
+            const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+            const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int i = e >> 1, col = k0 + nt * 8 + cq + (e & 1);
-                const float s_hat = capped(p, s[nt][e]);
-                const float sm = inside || visible(p, rows[i], col) ? s_hat : NEG_INF;
-                const float pr = __expf(sm - lse[i]);
-                s[nt][e] = pr * (dp[nt][e] - dl[i]) * cap_factor(p, s_hat);
+                const float2 a = __bfloat1622float2(xs[e]), b = __bfloat1622float2(ys[e]);
+                acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
             }
         }
-
-        // dQ += dS K: dS from registers (columns 2j, 2j+1 are the A fragment
-        // of k-step j); K as a row-major [kv][d] B operand
 #pragma unroll
-        for (int j = 0; j < kK / 16; ++j) {
-            const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                   pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                   pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                   pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-            for (int dt = 0; dt < D / 16; ++dt) {
-                uint32_t kb[4];
-                ldmatrix_b(kb, cK, LD, j * 16, dt * 16);
-                mma_bf16(dq[2 * dt], a, kb[0], kb[1]);
-                mma_bf16(dq[2 * dt + 1], a, kb[2], kb[3]);
-            }
+        for (int off = 1; off < CH; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (lane % CH == 0) {
+            out[r] = acc;
+            if (row < p.Lq) delta[row] = acc;
         }
-        __syncthreads();  // every warp is done with this stage before it is refilled
     }
-    cp_async_wait<0>();  // nothing in flight at exit (a CTA with no live tile)
+    __syncwarp();
+}
 
-    __nv_bfloat16* dQ =
-        static_cast<__nv_bfloat16*>(p.dq) + int64_t(b) * p.dq_sb + int64_t(h) * p.dq_sh;
+template <int D>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ BwdParams p,
+                             const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv) {
+    using S = DqSmem<D>;
+    constexpr int kSlabs = D / 64;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBars);  // Q and dO
+    uint64_t* full = q_full + 1;  // K and V of a stage
+    uint64_t* empty = full + kDqStages;
+
+    // heaviest causal q tiles first: blockIdx.x counts down the q tiles
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hk = h / (p.H / p.Hk);
+    int kt_begin, kt_end;
+    live_tiles(p, q0, kRows, kDqBN, &kt_begin, &kt_end);
+    const int n_tiles = max(kt_end - kt_begin, 0);
+
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < kDqStages; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 4 * kWarpgroups);  // one arrival a warp
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    // issue tile i's K and V copies into stage i % kDqStages (one thread)
+    auto load_tile = [&](int i) {
+        const int s = i % kDqStages, k0 = (kt_begin + i) * kDqBN;
+        unsigned char* sk = smem + S::kK + s * S::kTileBytes;
+        unsigned char* sv = smem + S::kV + s * S::kTileBytes;
+        mbar_arrive_expect_tx(full + s, 2 * S::kTileBytes);
+        for (int c = 0; c < kSlabs; ++c) {
+            tma_load_4d(sk + c * S::kTileSlab, &tk, full + s, c * 64, hk, k0, b);
+            tma_load_4d(sv + c * S::kTileSlab, &tv, full + s, c * 64, hk, k0, b);
+        }
+    };
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0 && n_tiles > 0) {  // Q, dO and the first round of the ring
+        mbar_arrive_expect_tx(q_full, 2 * S::kResBytes);
+        for (int c = 0; c < kSlabs; ++c) {
+            tma_load_4d(smem + S::kQ + c * S::kResSlab, &tq, q_full, c * 64, h, q0, b);
+            tma_load_4d(smem + S::kDO + c * S::kResSlab, &tdo, q_full, c * 64, h, q0, b);
+        }
+        for (int i = 0; i < min(kDqStages, n_tiles); ++i) load_tile(i);
+    }
+
+    const int cw = warp / 4;  // this warpgroup's rows: q0 + 64 cw ..
+    const int qw = q0 + 64 * cw;
+    const int r0 = 16 * (warp % 4) + lane / 4;  // rows r0 and r0 + 8 of the 64
+    const int cq = (lane % 4) * 2;              // columns cq, cq + 1 of each 8
+    const int rows[2] = {qw + r0, qw + r0 + 8};
+    const int64_t row_base = (int64_t(b) * p.H + h) * p.Lq;  // into lse and D
+
+    // D of this warp's 16 rows, from global memory while the tiles load
+    float* sdelta = reinterpret_cast<float*>(smem + S::kDelta) + 16 * warp;
+    delta_rows<D>(p,
+                  static_cast<const __nv_bfloat16*>(p.dout) + int64_t(b) * p.do_sb +
+                      int64_t(h) * p.do_sh,
+                  static_cast<const __nv_bfloat16*>(p.o) + int64_t(b) * p.o_sb + int64_t(h) * p.o_sh,
+                  qw + 16 * (warp % 4), sdelta, p.delta + row_base, lane);
+    const float dl[2] = {sdelta[lane / 4], sdelta[lane / 4 + 8]};
+    float lse[2], lse2[2];  // natural and log2 units
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        if (rows[i] >= p.Lq) continue;
-        __nv_bfloat16* drow = dQ + int64_t(rows[i]) * p.dq_sl;
+    for (int r = 0; r < 2; ++r) {
+        lse[r] = rows[r] < p.Lq ? p.lse[row_base + rows[r]] : 0.f;
+        lse2[r] = lse[r] * kLog2e;
+    }
+    const float scale_log2 = p.scale * kLog2e;
+
+    float dq[D / 2];
+    zero(dq);
+    if (n_tiles > 0) {
+        const uint32_t q_addr = smem_u32(smem + S::kQ) + cw * 64 * 128;
+        const uint32_t do_addr = smem_u32(smem + S::kDO) + cw * 64 * 128;
+        const uint32_t k_addr = smem_u32(smem + S::kK);
+        const uint32_t v_addr = smem_u32(smem + S::kV);
+        float sc[kDqBN / 2], dp[kDqBN / 2];  // S (then P) and dP of a tile
+        zero(sc);
+        zero(dp);
+        mbar_wait(q_full, 0);
+        for (int i = 0; i < n_tiles; ++i) {
+            const int s = i % kDqStages;
+            const uint32_t parity = (i / kDqStages) & 1;
+            const int k0 = (kt_begin + i) * kDqBN;
+            const uint32_t k_tile = k_addr + s * S::kTileBytes;
+            const uint32_t v_tile = v_addr + s * S::kTileBytes;
+            mbar_wait(full + s, parity);
+            // a tile wholly outside this warpgroup's band adds nothing
+            if (!((p.causal && k0 > qw + 63) ||
+                  (p.window > 0 && qw - (k0 + kDqBN - 1) >= p.window))) {
+                issue_ss<kDqBN, D>(sc, q_addr, S::kResSlab, k_tile, S::kTileSlab);  // S = Q K^T
+                issue_ss<kDqBN, D>(dp, do_addr, S::kResSlab, v_tile, S::kTileSlab);  // dP = dO V^T
+                wgmma_wait<1>();
+                fence_regs(sc);
+                // P times the softcap factor, in place of S, while dP is in flight
+                const bool inside = k0 + kDqBN <= p.Lk && (!p.causal || k0 + kDqBN - 1 <= qw) &&
+                                    (p.window <= 0 || qw + 63 - k0 < p.window);
+                if (inside && p.softcap <= 0.f) {
 #pragma unroll
-        for (int t = 0; t < OT; ++t)
-            *reinterpret_cast<uint32_t*>(drow + t * 8 + cq) =
-                pack_bf16(dq[t][2 * i] * p.scale, dq[t][2 * i + 1] * p.scale);
+                    for (int j = 0; j < kDqBN / 2; ++j)
+                        sc[j] = ex2(fmaf(sc[j], scale_log2, -lse2[(j >> 1) & 1]));
+                } else {
+#pragma unroll
+                    for (int j = 0; j < kDqBN / 2; ++j) {
+                        const int r = (j >> 1) & 1, col = k0 + 8 * (j / 4) + cq + (j & 1);
+                        const float s_hat = capped(p, sc[j]);
+                        const float sm = inside || visible(p, rows[r], col) ? s_hat : NEG_INF;
+                        sc[j] = ex2((sm - lse[r]) * kLog2e) * cap_factor(p, s_hat);
+                    }
+                }
+                wgmma_wait<0>();
+                fence_regs(dp);
+                // dS = P (dP - D) in bf16, the A operand of dQ += dS K
+                uint32_t da[kDqBN / 16][4];
+#pragma unroll
+                for (int kk = 0; kk < kDqBN / 16; ++kk) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int j = 8 * kk + 2 * e;
+                        da[kk][e] = pack_bf16(sc[j] * (dp[j] - dl[e & 1]),
+                                              sc[j + 1] * (dp[j + 1] - dl[e & 1]));
+                    }
+                }
+                wgmma_fence();
+                issue_rs<kDqBN, D>(dq, da, k_tile, S::kTileSlab);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(dq);
+            }
+            release<kDqStages>(empty, i, lane);
+            // warp 0 refills the stage once both warpgroups have released it
+            if (warp == 0 && i + kDqStages < n_tiles) {
+                mbar_wait(empty + s, parity);
+                if (lane == 0) load_tile(i + kDqStages);
+                __syncwarp();
+            }
+        }
+    }
+    store_rows<D>(static_cast<__nv_bfloat16*>(p.dq) + int64_t(b) * p.dq_sb + int64_t(h) * p.dq_sh,
+                  p.dq_sl, dq, rows, p.Lq, cq, p.scale);
+}
+
+// Start loading step ``it`` of the dK/dV ring into stage it % kDkvStages, by
+// one warp: Q and dO by TMA (lane 0), lse and D by cp.async (every lane,
+// which arrives on the stage's full barrier once its copies land), so the
+// warp goes on at once.
+template <int D>
+__device__ __forceinline__ void load_dkv_step(const BwdParams& p, unsigned char* smem,
+                                              const CUtensorMap* tq, const CUtensorMap* tdo,
+                                              uint64_t* full, int it, int b, int hk, int group,
+                                              int n_live, int qt_begin, int lane) {
+    using S = DkvSmem<D>;
+    const int s = it % kDkvStages;
+    const int h = hk * group + it / n_live;
+    const int q0 = (qt_begin + it % n_live) * kDkvBM;
+    const int64_t base = (int64_t(b) * p.H + h) * p.Lq;
+    float* sl = reinterpret_cast<float*>(smem + S::kL) + s * kDkvBM;
+    float* sd = reinterpret_cast<float*>(smem + S::kD) + s * kDkvBM;
+    for (int r = lane; r < kDkvBM; r += 32) {
+        const bool in = q0 + r < p.Lq;
+        const int64_t at = base + (in ? q0 + r : 0);
+        cp_async4(sl + r, p.lse + at, in);
+        cp_async4(sd + r, p.delta + at, in);
+    }
+    cp_async_mbar_arrive(full + s);
+    if (lane == 0) {
+        mbar_arrive_expect_tx(full + s, 2 * S::kTileBytes);
+        unsigned char* sq = smem + S::kQ + s * S::kTileBytes;
+        unsigned char* sdo = smem + S::kDO + s * S::kTileBytes;
+        for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(sq + c * S::kTileSlab, tq, full + s, c * 64, h, q0, b);
+            tma_load_4d(sdo + c * S::kTileSlab, tdo, full + s, c * 64, h, q0, b);
+        }
     }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_bf16_kernel(const __grid_constant__ BwdParams p) {
-    constexpr int BQ = DkvTile<D>::BQ;
-    constexpr int LD = D + kPad;
-    constexpr int KS = D / 16;  // k-steps of the K Q^T and V dO^T products
-    constexpr int NT = BQ / 8;  // 8-column (q) tiles of S^T and dP^T
-    constexpr int OT = D / 8;   // 8-column tiles of dK and dV
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* sV = sK + kKV * LD;
-    __nv_bfloat16* sQ = sV + kKV * LD;     // two stages
-    __nv_bfloat16* sdO = sQ + 2 * BQ * LD;  // two stages
-    float* sL = reinterpret_cast<float*>(sdO + 2 * BQ * LD);  // two stages of lse
-    float* sD = sL + 2 * BQ;                                   // two stages of D
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ BwdParams p,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdo) {
+    using S = DkvSmem<D>;
+    constexpr int kSlabs = D / 64;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::kBars);  // K and V
+    uint64_t* full = kv_full + 1;              // Q, dO, lse, D of a stage
+    uint64_t* empty = full + kDkvStages;
+    const float* ring_lse = reinterpret_cast<const float*>(smem + S::kL);
+    const float* ring_delta = reinterpret_cast<const float*>(smem + S::kD);
 
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int hk = blockIdx.y, b = blockIdx.z;
+    // the low kv tiles, the heaviest, first across every (batch, kv head):
+    // the kv tile is the grid's slowest axis
+    const int k0 = blockIdx.z * kRows;
+    const int hk = blockIdx.x, b = blockIdx.y;
     const int group = p.H / p.Hk;
-    const int k0 = blockIdx.x * kKV;
-    const __nv_bfloat16* K =
-        static_cast<const __nv_bfloat16*>(p.k) + int64_t(b) * p.k_sb + int64_t(hk) * p.k_sh;
-    const __nv_bfloat16* V =
-        static_cast<const __nv_bfloat16*>(p.v) + int64_t(b) * p.v_sb + int64_t(hk) * p.v_sh;
-
     int qt_begin, qt_end;
-    live_q_tiles(p, k0, kKV, BQ, &qt_begin, &qt_end);
-    const int n_live = qt_end - qt_begin;
+    live_q_tiles(p, k0, kRows, kDkvBM, &qt_begin, &qt_end);
+    const int n_live = max(qt_end - qt_begin, 0);
     const int n_steps = group * n_live;  // (q head of the group, q tile) pairs
 
-    // start loading step ``it``'s Q, dO, lse and D tiles into ``stage``
-    auto load_step = [&](int it, int stage) {
-        const int h = hk * group + it / n_live;
-        const int q0 = (qt_begin + it % n_live) * BQ;
-        load_tile_async<D, BQ, kThreads>(
-            sQ + stage * BQ * LD,
-            static_cast<const __nv_bfloat16*>(p.q) + int64_t(b) * p.q_sb + int64_t(h) * p.q_sh,
-            p.q_sl, q0, p.Lq);
-        load_tile_async<D, BQ, kThreads>(
-            sdO + stage * BQ * LD,
-            static_cast<const __nv_bfloat16*>(p.dout) + int64_t(b) * p.do_sb +
-                int64_t(h) * p.do_sh,
-            p.do_sl, q0, p.Lq);
-        if (threadIdx.x < BQ) {
-            const int row = q0 + threadIdx.x;
-            const bool in = row < p.Lq;
-            const int64_t at = (int64_t(b) * p.H + h) * p.Lq + (in ? row : 0);
-            cp_async4(sL + stage * BQ + threadIdx.x, p.lse + at, in);
-            cp_async4(sD + stage * BQ + threadIdx.x, p.delta + at, in);
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        for (int s = 0; s < kDkvStages; ++s) {
+            mbar_init(full + s, 33);  // warp 0's lanes' copies and lane 0's TMA
+            mbar_init(empty + s, 4 * kWarpgroups);  // one arrival a warp
         }
-    };
-
-    load_tile_async<D, kKV, kThreads>(sK, K, p.k_sl, k0, p.Lk);
-    load_tile_async<D, kKV, kThreads>(sV, V, p.v_sl, k0, p.Lk);
-    if (n_steps > 0) load_step(0, 0);
-    cp_async_commit();
-
-    // this thread's kv rows in the tile: r0 and r0 + 8; its q column pair: cq, cq + 1
-    const int r0 = warp * 16 + lane / 4;
-    const int cq = (lane % 4) * 2;
-    const int kv_rows[2] = {k0 + r0, k0 + r0 + 8};
-
-    float dk[OT][4], dv[OT][4];
-#pragma unroll
-    for (int t = 0; t < OT; ++t) {
-        dk[t][0] = dk[t][1] = dk[t][2] = dk[t][3] = 0.f;
-        dv[t][0] = dv[t][1] = dv[t][2] = dv[t][3] = 0.f;
+        mbar_fence_init();
     }
+    __syncthreads();
 
-    for (int it = 0; it < n_steps; ++it) {
-        const int stage = it & 1;
-        const int q0 = (qt_begin + it % n_live) * BQ;
-        if (it + 1 < n_steps) load_step(it + 1, stage ^ 1);  // prefetch into the other stage
-        cp_async_commit();
-        cp_async_wait<1>();  // this step's tiles (and K, V) have landed
-        __syncthreads();
-        const __nv_bfloat16* cQ = sQ + stage * BQ * LD;
-        const __nv_bfloat16* cdO = sdO + stage * BQ * LD;
-        const float* cL = sL + stage * BQ;
-        const float* cD = sD + stage * BQ;
-
-        // S^T = K Q^T and dP^T = V dO^T for this warp's 16 kv rows x BQ q columns
-        float s[NT][4], dp[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-            dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        }
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-            uint32_t ka[4], va[4];
-            ldmatrix_a(ka, sK, LD, warp * 16, ks * 16);
-            ldmatrix_a(va, sV, LD, warp * 16, ks * 16);
-#pragma unroll
-            for (int np = 0; np < NT / 2; ++np) {
-                uint32_t qb[4], db[4];
-                ldmatrix_bt(qb, cQ, LD, np * 16, ks * 16);
-                mma_bf16(s[2 * np], ka, qb[0], qb[1]);
-                mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
-                ldmatrix_bt(db, cdO, LD, np * 16, ks * 16);
-                mma_bf16(dp[2 * np], va, db[0], db[1]);
-                mma_bf16(dp[2 * np + 1], va, db[2], db[3]);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && n_steps > 0) {  // K, V and the first round of the ring
+        if (lane == 0) {
+            mbar_arrive_expect_tx(kv_full, 2 * S::kResBytes);
+            for (int c = 0; c < kSlabs; ++c) {
+                tma_load_4d(smem + S::kK + c * S::kResSlab, &tk, kv_full, c * 64, hk, k0, b);
+                tma_load_4d(smem + S::kV + c * S::kResSlab, &tv, kv_full, c * 64, hk, k0, b);
             }
         }
+        for (int it = 0; it < min(kDkvStages, n_steps); ++it)
+            load_dkv_step<D>(p, smem, &tq, &tdo, full, it, b, hk, group, n_live, qt_begin, lane);
+    }
 
-        // P^T in place of S^T, dS^T in place of dP^T; a score's row is the q
-        // position (the column here), its column the kv position
-        const bool inside = q0 + BQ <= p.Lq && k0 + kKV <= p.Lk &&
-                            (!p.causal || k0 + kKV - 1 <= q0) &&
-                            (p.window <= 0 || q0 + BQ - 1 - k0 < p.window);
+    const int cw = warp / 4;  // this warpgroup's kv rows: k0 + 64 cw ..
+    const int kw = k0 + 64 * cw;
+    const int r0 = 16 * (warp % 4) + lane / 4;  // kv rows r0 and r0 + 8 of the 64
+    const int cq = (lane % 4) * 2;              // q columns cq, cq + 1 of each 8
+    const int kv_rows[2] = {kw + r0, kw + r0 + 8};
+    const float scale_log2 = p.scale * kLog2e;
+
+    float dk[D / 2], dv[D / 2];
+    zero(dk);
+    zero(dv);
+    if (n_steps > 0) {
+        const uint32_t k_addr = smem_u32(smem + S::kK) + cw * 64 * 128;
+        const uint32_t v_addr = smem_u32(smem + S::kV) + cw * 64 * 128;
+        const uint32_t q_ring = smem_u32(smem + S::kQ);
+        const uint32_t do_ring = smem_u32(smem + S::kDO);
+        float st[kDkvBM / 2], dpt[kDkvBM / 2];  // S^T and dP^T of a step
+        zero(st);
+        zero(dpt);
+        mbar_wait(kv_full, 0);
+        for (int it = 0; it < n_steps; ++it) {
+            const int s = it % kDkvStages;
+            const int q0 = (qt_begin + it % n_live) * kDkvBM;
+            mbar_wait(full + s, (it / kDkvStages) & 1);
+            // a q tile wholly outside this warpgroup's band adds nothing
+            if (!((p.causal && q0 + kDkvBM - 1 < kw) ||
+                  (p.window > 0 && q0 - (kw + 63) >= p.window))) {
+                const uint32_t q_tile = q_ring + s * S::kTileBytes;
+                const uint32_t do_tile = do_ring + s * S::kTileBytes;
+                // S^T = K Q^T and dP^T = V dO^T: kv rows x q columns
+                issue_ss<kDkvBM, D>(st, k_addr, S::kResSlab, q_tile, S::kTileSlab);
+                issue_ss<kDkvBM, D>(dpt, v_addr, S::kResSlab, do_tile, S::kTileSlab);
+                wgmma_wait<0>();
+                fence_regs(st);
+                fence_regs(dpt);
+                // P^T and dS^T in bf16, the A operands of the two products; a
+                // score's row is the q position (the column here), its column
+                // the kv position
+                const float* cl = ring_lse + s * kDkvBM;
+                const float* cd = ring_delta + s * kDkvBM;
+                const bool inside = q0 + kDkvBM <= p.Lq && kw + 64 <= p.Lk &&
+                                    (!p.causal || kw + 63 <= q0) &&
+                                    (p.window <= 0 || q0 + kDkvBM - 1 - kw < p.window);
+                uint32_t pa[kDkvBM / 16][4], da[kDkvBM / 16][4];
+                if (inside && p.softcap <= 0.f) {
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
+                    for (int kk = 0; kk < kDkvBM / 16; ++kk) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int c = nt * 8 + cq + (e & 1), q_row = q0 + c;
-                const float s_hat = capped(p, s[nt][e]);
-                const bool in = inside || (q_row < p.Lq && visible(p, q_row, kv_rows[e >> 1]));
-                const float pr = __expf((in ? s_hat : NEG_INF) - cL[c]);
-                s[nt][e] = pr;
-                dp[nt][e] = pr * (dp[nt][e] - cD[c]) * cap_factor(p, s_hat);
+                        for (int e = 0; e < 4; ++e) {
+                            const int j = 8 * kk + 2 * e, c = 16 * kk + 8 * (e >> 1) + cq;
+                            const float2 l2 = *reinterpret_cast<const float2*>(cl + c);
+                            const float2 d2 = *reinterpret_cast<const float2*>(cd + c);
+                            const float p0 = ex2(fmaf(st[j], scale_log2, -l2.x * kLog2e));
+                            const float p1 = ex2(fmaf(st[j + 1], scale_log2, -l2.y * kLog2e));
+                            pa[kk][e] = pack_bf16(p0, p1);
+                            da[kk][e] = pack_bf16(p0 * (dpt[j] - d2.x), p1 * (dpt[j + 1] - d2.y));
+                        }
+                    }
+                } else {
+#pragma unroll
+                    for (int kk = 0; kk < kDkvBM / 16; ++kk) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int j = 8 * kk + 2 * e, c = 16 * kk + 8 * (e >> 1) + cq;
+                            float pr[2], g[2];
+#pragma unroll
+                            for (int u = 0; u < 2; ++u) {
+                                const int q_row = q0 + c + u;
+                                const float s_hat = capped(p, st[j + u]);
+                                const bool in =
+                                    inside || (q_row < p.Lq && visible(p, q_row, kv_rows[e & 1]));
+                                pr[u] = ex2(((in ? s_hat : NEG_INF) - cl[c + u]) * kLog2e);
+                                g[u] = pr[u] * (dpt[j + u] - cd[c + u]) * cap_factor(p, s_hat);
+                            }
+                            pa[kk][e] = pack_bf16(pr[0], pr[1]);
+                            da[kk][e] = pack_bf16(g[0], g[1]);
+                        }
+                    }
+                }
+                // dV += P^T dO and dK += dS^T Q
+                wgmma_fence();
+                issue_rs<kDkvBM, D>(dv, pa, do_tile, S::kTileSlab);
+                issue_rs<kDkvBM, D>(dk, da, q_tile, S::kTileSlab);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(dv);
+                fence_regs(dk);
+            }
+            release<kDkvStages>(empty, it, lane);
+            // warp 0 refills the stage once both warpgroups have released it
+            if (warp == 0 && it + kDkvStages < n_steps) {
+                mbar_wait(empty + s, (it / kDkvStages) & 1);
+                load_dkv_step<D>(p, smem, &tq, &tdo, full, it + kDkvStages, b, hk, group, n_live,
+                                 qt_begin, lane);
+                __syncwarp();
             }
         }
-
-        // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q as
-        // row-major [q][d] B operands
-#pragma unroll
-        for (int j = 0; j < BQ / 16; ++j) {
-            const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                    pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                    pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                    pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-            const uint32_t da[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
-                                    pack_bf16(dp[2 * j][2], dp[2 * j][3]),
-                                    pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
-                                    pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
-#pragma unroll
-            for (int dt = 0; dt < D / 16; ++dt) {
-                uint32_t ob[4], qb[4];
-                ldmatrix_b(ob, cdO, LD, j * 16, dt * 16);
-                mma_bf16(dv[2 * dt], pa, ob[0], ob[1]);
-                mma_bf16(dv[2 * dt + 1], pa, ob[2], ob[3]);
-                ldmatrix_b(qb, cQ, LD, j * 16, dt * 16);
-                mma_bf16(dk[2 * dt], da, qb[0], qb[1]);
-                mma_bf16(dk[2 * dt + 1], da, qb[2], qb[3]);
-            }
-        }
-        __syncthreads();  // every warp is done with this stage before it is refilled
     }
-    cp_async_wait<0>();  // nothing in flight at exit (a CTA with no live step)
-
-    __nv_bfloat16* dK =
-        static_cast<__nv_bfloat16*>(p.dk) + int64_t(b) * p.dk_sb + int64_t(hk) * p.dk_sh;
-    __nv_bfloat16* dV =
-        static_cast<__nv_bfloat16*>(p.dv) + int64_t(b) * p.dv_sb + int64_t(hk) * p.dv_sh;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        if (kv_rows[i] >= p.Lk) continue;
-        __nv_bfloat16* krow = dK + int64_t(kv_rows[i]) * p.dk_sl;
-        __nv_bfloat16* vrow = dV + int64_t(kv_rows[i]) * p.dv_sl;
-#pragma unroll
-        for (int t = 0; t < OT; ++t) {
-            *reinterpret_cast<uint32_t*>(krow + t * 8 + cq) =
-                pack_bf16(dk[t][2 * i] * p.scale, dk[t][2 * i + 1] * p.scale);
-            *reinterpret_cast<uint32_t*>(vrow + t * 8 + cq) =
-                pack_bf16(dv[t][2 * i], dv[t][2 * i + 1]);
-        }
-    }
+    store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + int64_t(b) * p.dk_sb + int64_t(hk) * p.dk_sh,
+                  p.dk_sl, dk, kv_rows, p.Lk, cq, p.scale);
+    store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + int64_t(b) * p.dv_sb + int64_t(hk) * p.dv_sh,
+                  p.dv_sl, dv, kv_rows, p.Lk, cq, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -672,6 +833,15 @@ __global__ void __launch_bounds__(kThreads)
 // host entry points
 // ---------------------------------------------------------------------------
 
+// what make_bf16_tile_map needs of one [B, L, H, D] operand (B from the
+// params), with the rows of its box
+struct MapSpec {
+    const void* base;
+    int L, H, D;
+    int64_t sb, sl, sh;
+    int rows;
+};
+
 template <class Kernel>
 static cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const BwdParams& p,
                           cudaStream_t stream) {
@@ -682,20 +852,54 @@ static cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const BwdParams
     return cudaGetLastError();
 }
 
+// The bf16 kernels take four tensor maps by value (two of the owned side,
+// two of the streamed side), encoded for this call's pointers. The runtime
+// call comes first: in a thread where no CUDA context is current yet (an
+// autograd worker thread, say), it makes the device's context current,
+// which cuTensorMapEncodeTiled needs.
+template <class Kernel>
+static cudaError_t launch_bf16(Kernel kernel, dim3 grid, int threads, size_t smem,
+                               const BwdParams& p, const MapSpec (&specs)[4],
+                               cudaStream_t stream) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    CUtensorMap maps[4];
+    for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+        const MapSpec& m = specs[i];
+        err = make_bf16_tile_map(&maps[i], m.base, p.B, m.L, m.H, m.D, m.sb, m.sl, m.sh, m.rows);
+    }
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, stream>>>(p, maps[0], maps[1], maps[2], maps[3]);
+    return cudaGetLastError();
+}
+
 template <int D>
 static cudaError_t launch_dq(const BwdParams& p, int dtype, cudaStream_t st) {
-    if (dtype == 0)
-        return launch(flash_bwd_dq_bf16_kernel<D>, dim3((p.Lq + kQ - 1) / kQ, p.H, p.B),
-                      dq_smem_bytes<D>(), p, st);
+    if (dtype == 0) {
+        const MapSpec specs[4] = {  // Q, dO (resident); K, V (streamed)
+            {p.q, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, kRows},
+            {p.dout, p.Lq, p.H, D, p.do_sb, p.do_sl, p.do_sh, kRows},
+            {p.k, p.Lk, p.Hk, D, p.k_sb, p.k_sl, p.k_sh, kDqBN},
+            {p.v, p.Lk, p.Hk, D, p.v_sb, p.v_sl, p.v_sh, kDqBN}};
+        return launch_bf16(flash_bwd_dq_bf16_kernel<D>, dim3((p.Lq + kRows - 1) / kRows, p.H, p.B),
+                           kBf16Threads, DqSmem<D>::kBytes, p, specs, st);
+    }
     return launch(flash_bwd_dq_f32_kernel<D>, dim3((p.Lq + kF32Rows - 1) / kF32Rows, p.H, p.B),
                   f32_smem_bytes<D>(), p, st);
 }
 
 template <int D>
 static cudaError_t launch_dkv(const BwdParams& p, int dtype, cudaStream_t st) {
-    if (dtype == 0)
-        return launch(flash_bwd_dkv_bf16_kernel<D>, dim3((p.Lk + kKV - 1) / kKV, p.Hk, p.B),
-                      dkv_smem_bytes<D>(), p, st);
+    if (dtype == 0) {
+        const MapSpec specs[4] = {  // K, V (resident); Q, dO (streamed)
+            {p.k, p.Lk, p.Hk, D, p.k_sb, p.k_sl, p.k_sh, kRows},
+            {p.v, p.Lk, p.Hk, D, p.v_sb, p.v_sl, p.v_sh, kRows},
+            {p.q, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, kDkvBM},
+            {p.dout, p.Lq, p.H, D, p.do_sb, p.do_sl, p.do_sh, kDkvBM}};
+        return launch_bf16(flash_bwd_dkv_bf16_kernel<D>,
+                           dim3(p.Hk, p.B, (p.Lk + kRows - 1) / kRows), kBf16Threads,
+                           DkvSmem<D>::kBytes, p, specs, st);
+    }
     return launch(flash_bwd_dkv_f32_kernel<D>,
                   dim3((p.Lk + kF32Rows - 1) / kF32Rows, p.Hk, p.B), f32_smem_bytes<D>(), p, st);
 }

@@ -78,7 +78,6 @@ constexpr int kStages = 2;        // K and V tiles in flight
 // compiles the consumers within the launch bound of 168 a thread.)
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // dynamic shared memory, in bytes from a 1024-aligned base: Q (D / 64
 // swizzled slabs of kBM rows), the K and V rings (each tile D / 64 slabs of
@@ -99,12 +98,6 @@ struct FwdSmem {
 
 // --- the consumer warpgroup's steps. Stage and phase of kv tile i: stage
 // i % kStages, phase parity (i / kStages) & 1.
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
 
 // issue S = Q K^T (64 x 128) for the K tile at ``k_tile``: Q and K K-major
 // in shared memory
@@ -449,18 +442,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const __grid_co
 // host entry point
 // ---------------------------------------------------------------------------
 
+// The runtime call comes first: in a thread where no CUDA context is
+// current yet (an autograd worker thread, say), it makes the device's
+// context current, which cuTensorMapEncodeTiled needs.
 template <int D>
 static cudaError_t launch_bf16(const FwdParams& p, cudaStream_t stream) {
+    const size_t smem = FwdSmem<D>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     CUtensorMap tq, tk, tv;
-    cudaError_t err = make_bf16_tile_map(&tq, p.q, p.B, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, kBM);
+    if (err == cudaSuccess)
+        err = make_bf16_tile_map(&tq, p.q, p.B, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, kBM);
     if (err == cudaSuccess)
         err = make_bf16_tile_map(&tk, p.k, p.B, p.Lk, p.Hk, D, p.k_sb, p.k_sl, p.k_sh, kBN);
     if (err == cudaSuccess)
         err = make_bf16_tile_map(&tv, p.v, p.B, p.Lk, p.Hk, D, p.v_sb, p.v_sl, p.v_sh, kBN);
-    if (err != cudaSuccess) return err;
-    const size_t smem = FwdSmem<D>::kBytes;
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
     if (err != cudaSuccess) return err;
     dim3 grid((p.Lq + kBM - 1) / kBM, p.H, p.B);
     flash_fwd_bf16_kernel<D><<<grid, kBf16Threads, smem, stream>>>(p, tq, tk, tv);

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA tile loads and their tensor maps, wgmma with its
-// shared-memory descriptors, and setmaxnreg for warp specialisation.
+// mbarriers (and cp.async copies that arrive on them), TMA tile loads and
+// their tensor maps, wgmma with its shared-memory descriptors, and
+// setmaxnreg for warp specialisation.
 //
 // The shared-memory layout these helpers agree on is the one TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: a tile of ROWS x 64 bf16 (128 bytes a row) is
@@ -18,11 +19,12 @@
 //     k-step of 16 rows advances the start address by 2048 bytes.
 //
 // wgmma accumulators (m64nNk16, f32): in a warpgroup, warp w holds rows
-// 16w + lane / 4 and 16w + lane / 4 + 8; d[4i + e] is row (e < 2 ? r : r + 8),
-// column 8i + (lane % 4) * 2 + (e & 1): the mma.sync C layout of
-// flash_common.cuh, one 8-column tile after another. So the accumulators of
-// columns 16j..16j+15 (d[8j..8j+7]), packed to bf16 pairs, are the register
-// A operand of k-step j of a following product.
+// r = 16w + lane / 4 and r + 8; d[4i + e] is row (e < 2 ? r : r + 8),
+// column 8i + (lane % 4) * 2 + (e & 1), one 8-column tile after another.
+// So the accumulators of columns 16j..16j+15 (d[8j..8j+7]), packed to bf16
+// pairs, are the register A operand of k-step j of a following product:
+// a[e] holds row (e & 1 ? r + 8 : r), columns 16j + 8 (e >> 1) + (lane % 4) * 2
+// and the next one.
 
 #pragma once
 
@@ -83,6 +85,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     const long long start = clock64();
     while (!mbar_try_wait(addr, parity))
         if (clock64() - start > kMbarTimeoutCycles) __trap();
+}
+
+// 4-byte global -> shared copy (cp.async); pred false writes 0 and reads
+// nothing
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(pred ? 4 : 0)
+                 : "memory");
+}
+
+// one arrival on ``bar`` once every cp.async this thread has issued has
+// landed; the arrival is one of those the barrier was initialised to expect
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+                 : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -169,6 +186,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 64) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
 __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uint32_t (&a)[4],
                                                      uint64_t desc_b) {
@@ -201,6 +233,28 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// the same products by output width N (64 or 128), for kernels whose tile
+// widths are template or constexpr parameters
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+    static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+    if constexpr (N == 128)
+        wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
+    else
+        wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+    static_assert(N == 64 || N == 128, "wgmma_rs_tb: N is 64 or 128");
+    if constexpr (N == 128)
+        wgmma_m64n128k16_rs_tb(d, a, desc_b);
+    else
+        wgmma_m64n64k16_rs_tb(d, a, desc_b);
 }
 
 // ---------------------------------------------------------------------------

@@ -161,7 +161,7 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read 16-byte vectors, the bf16 forward through TMA: the
+    """The kernels read 16-byte vectors, the bf16 ones through TMA: the
     last dim contiguous, the strides of the other dims positive multiples of
     8 elements (16 bytes of bf16), the base 16-byte aligned; copy when not.
     A dim of extent 1 never applies its stride, so any stride does there."""

@@ -201,6 +201,125 @@ def test_bwd_kernels_read_strided_inputs(cuda):
         assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]
 
 
+# the edges of the bf16 backward kernels' tiles: 128 owned rows a CTA (64 a
+# consumer warpgroup), 64 streamed rows a step; Lq != Lk without the causal
+# mask at D = 64; windows whose band crosses a 128-row tile
+# (B, Lq, Lk, H, Hk, D, causal, window)
+BWD_EDGE_CASES = [
+    (1, 63, 63, 4, 2, 128, True, None),
+    (1, 64, 64, 4, 2, 128, True, None),
+    (1, 65, 65, 4, 2, 128, True, None),
+    (1, 127, 127, 4, 2, 128, True, None),
+    (1, 128, 128, 4, 2, 128, True, None),
+    (1, 129, 129, 4, 2, 128, True, None),
+    (2, 200, 200, 4, 1, 128, True, None),
+    (1, 129, 300, 4, 2, 64, False, None),
+    (1, 300, 129, 4, 4, 64, False, None),
+    (1, 65, 200, 2, 1, 64, False, None),
+    (1, 300, 300, 4, 2, 128, True, 100),
+    (1, 260, 260, 4, 2, 64, True, 70),
+]
+
+
+@pytest.mark.parametrize("case", BWD_EDGE_CASES, ids=str)
+def test_bwd_kernel_tile_edges(cuda, case):
+    b, lq, lk, h, hk, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q, k, v = rnd(b, lq, h, d) * 4, rnd(b, lk, hk, d), rnd(b, lk, hk, d)
+    dout = rnd(b, lq, h, d)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_cuda.flash_attention_fwd(q, k, v, **kw)
+    got = flash_cuda.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = flash_cuda.flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                                    **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]
+
+
+def test_bwd_kernels_read_batch_and_head_strides(cuda):
+    """q and dout transposed views of [B, H, L, D], k/v every other head of
+    a wider tensor, dout also as a batch-strided slice and as an expanded
+    (stride-0) tensor that the wrapper copies."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q = (rnd(2, 4, 200, 128) * 4).transpose(1, 2)
+    kv = rnd(2, 200, 4, 128)
+    k, v = kv[:, :, ::2], kv[:, :, 1::2]
+    out, lse = flash_cuda.flash_attention_fwd(q, k, v)
+    douts = [rnd(2, 4, 200, 128).transpose(1, 2),
+             rnd(4, 200, 4, 128)[::2],
+             rnd(1, 200, 1, 128).expand(2, 200, 4, 128)]
+    for dout in douts:
+        got = flash_cuda.flash_attention_bwd(q, k, v, out, lse, dout)
+        want = flash_cuda.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                        dout)
+        for g, w in zip(got, want):
+            assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_bwd_repeat_is_bitwise_equal(cuda, dtype):
+    """No atomics and a fixed order of sums: a repeat call gives the same
+    bits, with GQA, a window and ragged lengths."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, dout = (torch.randn(2, 300, 4, 128, generator=gen, device=cuda).to(
+        dtype) for _ in range(2))
+    k, v = (torch.randn(2, 300, 2, 128, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    out, lse = flash_cuda.flash_attention_fwd(q, k, v, window=100)
+    first = flash_cuda.flash_attention_bwd(q, k, v, out, lse, dout,
+                                           window=100)
+    again = flash_cuda.flash_attention_bwd(q, k, v, out, lse, dout,
+                                           window=100)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_kernels_launch_from_a_fresh_thread(cuda):
+    """A thread whose first CUDA work is one of the kernels may have no CUDA
+    context current yet, as autograd's worker thread may not: the forward
+    and the backward each launch there, and give the main thread's bits."""
+    import threading
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, dout = (torch.randn(1, 200, 4, 64, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(1, 200, 2, 64, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    out, lse = flash_cuda.flash_attention_fwd(q, k, v, window=64)
+    calls = {
+        "fwd": lambda: flash_cuda.flash_attention_fwd(q, k, v, window=64),
+        "bwd": lambda: flash_cuda.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                      window=64),
+    }
+    want = {name: fn() for name, fn in calls.items()}
+    for name, fn in calls.items():
+        got = {}
+
+        def work():
+            try:
+                got["result"] = fn()
+                torch.cuda.synchronize()
+            except Exception as err:  # reported below, in the test's thread
+                got["error"] = err
+
+        thread = threading.Thread(target=work)
+        thread.start()
+        thread.join()
+        assert "error" not in got, f"{name}: {got.get('error')}"
+        assert all(torch.equal(x, y) for x, y in zip(got["result"],
+                                                     want[name])), name
+
+
 def test_bwd_kernels_reject_what_they_do_not_take(cuda):
     q = torch.randn(1, 16, 2, 32, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 16, device=cuda)

@@ -510,3 +510,24 @@ def test_forward_kernel_variants_patch_the_source(tmp_path):
         patched = (out / "flash_fwd.cu").read_text()
         assert (patched == source) == (not patches), name
         assert (out / "hopper.cuh").exists()
+
+
+def test_backward_kernel_variants_patch_the_source(tmp_path):
+    """Each variant of ``experiments/torch_flash_bwd_variants.py`` still
+    finds, exactly once, the lines of ``flash_bwd.cu`` it replaces."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "torch_flash_bwd_variants",
+        root / "experiments" / "torch_flash_bwd_variants.py")
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    csrc = root / "ray_tpu_torch" / "ops" / "csrc"
+    source = (csrc / "flash_bwd.cu").read_text()
+    for name, patches in variants.VARIANTS.items():
+        out = variants.variant_source(name, csrc, tmp_path / name)
+        patched = (out / "flash_bwd.cu").read_text()
+        assert (patched == source) == (not patches), name
+        assert (out / "hopper.cuh").exists()
