@@ -15,12 +15,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    itself (a repeat call is bitwise equal); softcap cases widen q so the
    cap changes the result, and fail unless it does; time kernel, plain
    version, the PyTorch library call that computes the same function (SDPA;
-   none under a softcap, where SDPA without it is timed apart; one call
-   between events, and calls back to back), and the bound;
-4. backward kernels: dQ and dK/dV against their plain version on the same
-   cases, bitwise equal on a repeat call, timed (one call between events,
-   and calls back to back) beside the backward of PyTorch's SDPA and their
+   under a softcap compiled ``flex_attention`` with the cap as its
+   score_mod, held against the plain version, and SDPA without the cap
+   timed apart; one call between events, and calls back to back), and the
    bound;
+4. backward kernels: dQ and dK/dV against their plain version on the same
+   cases and at head dim 256 on the Gemma-2 training shapes, bitwise equal
+   on a repeat call, timed (one call between events, and calls back to
+   back) beside the library's backward (SDPA's; under a softcap compiled
+   ``flex_attention``'s, and SDPA's without the cap apart) and their bound;
+   softcap cases fail unless the cap moves the plain version's grads;
 5. forward: a small float32 forward on the card against the CPU, then
    ``models.forward`` at Llama-3-8B width (random bf16 weights from a
    seeded generator, all 32 layers) through the flash-attention kernel;
@@ -28,10 +32,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (prefix-cache hit, no leaked blocks), and its greedy tokens are held
    against the kernel-backed forward, in bf16 and again in float32;
 7. training: one float32 train step of a small gemma-style config on the
-   card against the same step on the CPU, then ``TrainLoopHelper`` at
-   Llama-1B width and depth (bf16 compute, f32 master weights, full remat,
-   B=4, L=4096) for 10 timed steps on one batch, through all three
-   kernels;
+   card against the same step on the CPU (head dims 64 and 256), then
+   ``TrainLoopHelper`` at Llama-1B width and depth (bf16 compute, f32
+   master weights, full remat, B=4, L=4096) for 10 timed steps on one
+   batch, through all three kernels, and at Gemma-2-9B width cut to 8
+   layers (B=1, L=8192, head dim 256: the D = 256 backward kernels);
+   each with its device time by kernel group from ``torch.profiler``;
 8. Gemma-2-9B (all 42 layers, head dim 256, bf16 weights): ``models.forward``
    at B=1, L=8192 through the kernel at D = 256; the paged and the dense
    (``paged=False``) engine each answer the 8 requests of phase 6, greedy
@@ -200,7 +206,8 @@ def phase_build():
     wrong = []
     for lib, kernel in (("flash_fwd", "flash_fwd_bf16_kernel"),
                         ("flash_bwd", "flash_bwd_dq_bf16_kernel"),
-                        ("flash_bwd", "flash_bwd_dkv_bf16_kernel")):
+                        ("flash_bwd", "flash_bwd_dkv_bf16_kernel"),
+                        ("flash_bwd", "flash_bwd_dkv_sweeps_bf16_kernel")):
         counts = _sass_counts(libs[lib], kernel, ("HGMMA", "UTMALDG", "HMMA"))
         if counts is None:
             print(f"[build] SASS of {kernel}: not available (no cuobjdump)",
@@ -308,18 +315,68 @@ def _library_call(q, k, v, causal, window):
     return lambda: sdpa(qt, kt, vt, **kw)
 
 
-def _library_bwd(q, k, v, causal, window, softcap, gen):
-    """The backward alone of one SDPA call on the same inputs
-    (``torch.autograd.grad`` on a retained graph), as a yardstick only;
-    None under a softcap."""
-    if softcap:
-        return None
+def _library_bwd(q, k, v, dout, causal, window):
+    """The backward alone of one SDPA call on the same inputs, cotangent
+    and band (``torch.autograd.grad`` on a retained graph), as a yardstick
+    only: the port never calls it. SDPA has no softcap: for a softcapped
+    case this is another, easier function, reported apart from
+    ``library_ms``."""
     qt, kt, vt, kw = _sdpa_inputs(q, k, v, causal, window)
     leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves, **kw)
-    g = torch.randn(out.shape, generator=gen, device=out.device,
-                    dtype=torch.float32).to(out.dtype)
+    g = dout.transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def _flex(q, causal, window, softcap, lk):
+    """``flex_attention`` compiled for one softcapped case: the cap as its
+    score_mod (on the scaled score, as the kernels apply it), the causal /
+    window band as a block mask built here, outside any timed call. Its
+    caches go under the build directory and it compiles in this process."""
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(_build.BUILD_DIR / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    torch._inductor.config.compile_threads = 1
+    torch._dynamo.reset()  # a case compiles for its own shapes, not dynamic
+
+    def capped(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def band(b, h, qi, ki):
+        keep = qi >= ki
+        return keep & (qi - ki < window) if window else keep
+
+    mask = (create_block_mask(band, None, None, q.shape[1], lk,
+                              device=q.device) if causal or window else None)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda *qkv: fn(*qkv, score_mod=capped, block_mask=mask,
+                           enable_gqa=True)
+
+
+def _flex_call(q, k, v, causal, window, softcap):
+    """One compiled ``flex_attention`` call that computes the softcapped
+    function on the same inputs, as the library yardstick: the port never
+    calls it. Returns it, with out in the port's [B, L, H, D] layout."""
+    flex = _flex(q, causal, window, softcap, k.shape[1])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: flex(qt, kt, vt).transpose(1, 2)
+
+
+def _flex_bwd(q, k, v, dout, causal, window, softcap):
+    """The backward alone of one compiled ``flex_attention`` call on the same
+    inputs, cap, band and cotangent (``torch.autograd.grad`` on a retained
+    graph), as the library yardstick: the port never calls it. Returns the
+    grads (dq, dk, dv) in the port's [B, L, H, D] layout."""
+    flex = _flex(q, causal, window, softcap, k.shape[1])
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    out = flex(*leaves)
+    g = dout.transpose(1, 2)
+    return lambda: [t.transpose(1, 2) for t in torch.autograd.grad(
+        out, leaves, g, retain_graph=True)]
 
 
 def phase_kernels():
@@ -367,20 +424,32 @@ def phase_kernels():
                    max_abs_err_lse=err_lse, limit=[limit_out, tol_lse],
                    bitwise_repeat=bitwise, ms=ms, busy_ms=busy_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        lib_err = None
         if softcap:
-            # no library call computes softcapped attention
+            # the library call is flex_attention with the cap; SDPA, which
+            # has none, is reported apart
+            flex = _flex_call(q, k, v, causal, window, softcap)
+            lib_err = (flex().float() - ref_out.float()).abs().max().item()
             row.update(q_amp=SOFTCAP_Q_AMP, cap_effect=cap_effect,
-                       library_ms=None, library_busy_ms=None,
+                       library="flex_attention", library_ms=_median_ms(flex),
+                       library_busy_ms=_busy_ms(flex),
+                       library_max_abs_err=lib_err,
                        sdpa_without_softcap_ms=lib_ms,
                        sdpa_without_softcap_busy_ms=lib_busy_ms)
+            del flex
         else:
-            row.update(library_ms=lib_ms, library_busy_ms=lib_busy_ms)
+            row.update(library="sdpa", library_ms=lib_ms,
+                       library_busy_ms=lib_busy_ms)
         print("[kernel] " + json.dumps(row), flush=True)
         if not (err_out <= limit_out and err_lse <= tol_lse and bitwise):
             raise AssertionError(
                 f"flash_attention_fwd disagrees with its plain version on "
                 f"{name}: out {err_out:.3g} (limit {limit_out:.3g}), lse "
                 f"{err_lse:.3g} (tol {tol_lse}), bitwise repeat {bitwise}")
+        if lib_err is not None and not lib_err <= limit_out:
+            raise AssertionError(
+                f"{name}: flex_attention's out is {lib_err:.3g} off the plain "
+                f"version (limit {limit_out:.3g}): not the same function")
         if softcap and not cap_effect >= CAP_MARGIN * limit_out:
             raise AssertionError(
                 f"{name}: the softcap moves out by {cap_effect:.3g} only, "
@@ -393,7 +462,10 @@ def phase_kernels():
 
 
 # (name, B, Lq, Lk, H, Hk, D, dtype, causal, window, softcap); the first is
-# the llama_1b training shape, the second the llama3_8b forward's
+# the llama_1b training shape, the second the llama3_8b forward's; at head
+# dim 256 the Gemma-2 training phase's two shapes (B=1, L=8192, the
+# 4096-window layers and the global ones), a ragged length, a window that
+# is no multiple of the 32-row streamed tile, and the float32 path
 BWD_CASES = [
     ("train_causal", 4, 4096, 4096, 16, 8, 128, torch.bfloat16, True, None,
      0.0),
@@ -412,12 +484,26 @@ BWD_CASES = [
     ("f32_window48_softcap", 1, 300, 300, 8, 2, 128, torch.float32, True,
      48, 50.0),
     ("f32_d64", 1, 512, 512, 8, 2, 64, torch.float32, True, None, 0.0),
+    ("gemma2_train_window4096_L8192_softcap50_d256", 1, 8192, 8192, 16, 8,
+     256, torch.bfloat16, True, 4096, 50.0),
+    ("gemma2_train_global_L8192_softcap50_d256", 1, 8192, 8192, 16, 8, 256,
+     torch.bfloat16, True, None, 50.0),
+    ("ragged_L1000_d256", 2, 1000, 1000, 16, 8, 256, torch.bfloat16, True,
+     None, 0.0),
+    ("window48_L256_d256", 2, 256, 256, 16, 8, 256, torch.bfloat16, True, 48,
+     0.0),
+    ("f32_window48_softcap50_d256", 1, 300, 300, 8, 2, 256, torch.float32,
+     True, 48, 50.0),
 ]
 # max |kernel - plain| over max |plain|, per gradient. bf16: P and dS enter
 # their products rounded to 8 significant bits and the grads are rounded
 # to bf16 once (2**-9 relative); accumulation is f32 in both. f32: exact
 # f32 FMAs summed in another order.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# Softcap cases widen q by SOFTCAP_Q_AMP, as the forward's do, and each
+# fails unless dropping the cap (the plain version without it, forward and
+# backward) moves every grad by at least CAP_MARGIN times its limit: dQ
+# and dK through the cap's chain factor and P, dV through P alone.
 
 
 def _bwd_bounds(q, k, causal, window):
@@ -447,17 +533,16 @@ def _bwd_bounds(q, k, causal, window):
 def phase_bwd_kernels(cases=BWD_CASES):
     """The backward kernels against their plain version on every case, on
     the forward kernel's out and lse, and against themselves (a repeat
-    call is bitwise equal); returns the row of the main-path case (the
-    first)."""
+    call is bitwise equal); returns the timing rows by case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = []
+    rows = {}
     for (name, b, lq, lk, h, hk, d, dtype, causal, window, softcap) in cases:
         def rnd(*shape, amp=1.0):
             return (torch.randn(shape, generator=gen, device="cuda",
                                 dtype=torch.float32) * amp).to(dtype)
 
         # softcap 50 on unit-scale scores would be a no-op: widen them
-        q = rnd(b, lq, h, d, amp=8.0 if softcap else 1.0)
+        q = rnd(b, lq, h, d, amp=SOFTCAP_Q_AMP if softcap else 1.0)
         k, v, dout = rnd(b, lk, hk, d), rnd(b, lk, hk, d), rnd(b, lq, h, d)
         kw = dict(causal=causal, window=window, softcap=softcap)
         out, lse = flash_cuda.flash_attention_fwd(q, k, v, **kw)
@@ -468,10 +553,21 @@ def phase_bwd_kernels(cases=BWD_CASES):
         torch.cuda.synchronize()
         abs_errs = [(g.float() - w.float()).abs().max().item()
                     for g, w in zip(got, want)]
+        limits = [BWD_TOL[dtype] * w.float().abs().max().item() for w in want]
         errs = [e / w.float().abs().max().item()
                 for e, w in zip(abs_errs, want)]
         bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
-        del again
+        del again, got
+        cap_effect = None
+        if softcap:
+            # the plain version without the cap, forward and backward
+            nc_out, nc_lse = flash_cuda.flash_attention_fwd_reference(
+                q, k, v, causal=causal, window=window)
+            nocap = flash_cuda.flash_attention_bwd_reference(
+                q, k, v, nc_out, nc_lse, dout, causal=causal, window=window)
+            cap_effect = [(n.float() - w.float()).abs().max().item() / lim
+                          for n, w, lim in zip(nocap, want, limits)]
+            del nc_out, nc_lse, nocap
         run_dq, run_dkv, _ = flash_cuda._bwd_launchers(q, k, v, out, lse,
                                                         dout, **kw)
         dq_ms, dkv_ms = _median_ms(run_dq), _median_ms(run_dkv)
@@ -479,10 +575,9 @@ def phase_bwd_kernels(cases=BWD_CASES):
         plain_ms = _median_ms(
             lambda: flash_cuda.flash_attention_bwd_reference(
                 q, k, v, out, lse, dout, **kw), iters=3, warmup=1)
-        lib = _library_bwd(q, k, v, causal, window, softcap, gen)
-        library_ms = _median_ms(lib) if lib is not None else None
-        library_busy_ms = _busy_ms(lib) if lib is not None else None
-        del lib
+        lib = _library_bwd(q, k, v, dout, causal, window)
+        lib_ms, lib_busy_ms = _median_ms(lib), _busy_ms(lib)
+        del lib, run_dq, run_dkv
         (dkv_bound, dkv_by), (dq_bound, dq_by), (bound_ms, bound_by) = \
             _bwd_bounds(q, k, causal, window)
         row = dict(case=name, shape=[b, lq, lk, h, hk, d],
@@ -494,19 +589,47 @@ def phase_bwd_kernels(cases=BWD_CASES):
                    tol=BWD_TOL[dtype], bitwise_repeat=bitwise,
                    dkv_ms=dkv_ms, dq_ms=dq_ms, dkv_busy_ms=dkv_busy_ms,
                    dq_busy_ms=dq_busy_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, library_busy_ms=library_busy_ms,
                    dkv_bound_ms=dkv_bound,
                    dkv_bound_by=dkv_by, dq_bound_ms=dq_bound,
                    dq_bound_by=dq_by, bound_ms=bound_ms, bound_by=bound_by)
+        lib_errs = None
+        if softcap:
+            # the library call is flex_attention's backward with the cap;
+            # SDPA's, which has none, is reported apart
+            flex = _flex_bwd(q, k, v, dout, causal, window, softcap)
+            lib_errs = [(g.float() - w.float()).abs().max().item()
+                        / w.float().abs().max().item()
+                        for g, w in zip(flex(), want)]
+            row.update(q_amp=SOFTCAP_Q_AMP,
+                       cap_effect_over_limit=dict(zip(("dq", "dk", "dv"),
+                                                      cap_effect)),
+                       library="flex_attention", library_ms=_median_ms(flex),
+                       library_busy_ms=_busy_ms(flex),
+                       library_rel_err=dict(zip(("dq", "dk", "dv"), lib_errs)),
+                       sdpa_bwd_without_softcap_ms=lib_ms,
+                       sdpa_bwd_without_softcap_busy_ms=lib_busy_ms)
+            del flex
+        else:
+            row.update(library="sdpa", library_ms=lib_ms,
+                       library_busy_ms=lib_busy_ms)
         print("[bwd-kernel] " + json.dumps(row), flush=True)
         if not (max(errs) <= BWD_TOL[dtype] and bitwise):
             raise AssertionError(
                 f"flash_attention_bwd on {name}: relative errors {errs} (tol "
                 f"{BWD_TOL[dtype]}), bitwise repeat {bitwise}")
-        rows.append(row)
-        del q, k, v, dout, out, lse, got, want
+        if lib_errs is not None and not max(lib_errs) <= BWD_TOL[dtype]:
+            raise AssertionError(
+                f"{name}: flex_attention's grads are {lib_errs} off the plain "
+                f"version (tol {BWD_TOL[dtype]}): not the same function")
+        if softcap and not min(cap_effect) >= CAP_MARGIN:
+            raise AssertionError(
+                f"{name}: dropping the softcap moves the grads (dq, dk, dv) "
+                f"by only {cap_effect} x their limits, under {CAP_MARGIN}: "
+                f"the check could not catch a kernel without it")
+        rows[name] = row
+        del q, k, v, dout, out, lse, want
         torch.cuda.empty_cache()
-    return rows[0]
+    return rows
 
 
 def phase_small_forward(seed=0):
@@ -774,16 +897,18 @@ def _tree_items(tree, prefix=""):
             yield prefix + k, tree[k]
 
 
-def phase_small_train(seed=0, device="cuda"):
+def phase_small_train(seed=0, device="cuda", head_dim=None):
     """One float32 ``make_train_step`` step (through ``TrainLoopHelper``)
     of a gemma-style config (GQA, alternating windows 48/global, attention
     and logit softcaps, tied embeddings, full remat) on the card, its f32
     kernels, against the same step on the CPU, the plain versions, from
-    the same weights and batch."""
+    the same weights and batch. ``head_dim=256`` (Gemma-2's) takes 2 q
+    heads and 1 kv head in place of 4 and 2 of width 64."""
+    heads = dict(n_heads=4, n_kv_heads=2) if head_dim is None else dict(
+        n_heads=2, n_kv_heads=1, head_dim=head_dim)
     cfg = models.gemma_debug().replace(
-        d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab_size=512,
-        attn_windows=(48, 0), dtype="float32", param_dtype="float32",
-        remat=True)
+        d_model=256, d_ff=512, vocab_size=512, attn_windows=(48, 0),
+        dtype="float32", param_dtype="float32", remat=True, **heads)
     weights = models.init_params(torch.Generator().manual_seed(seed), cfg,
                                  device="cpu")
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 201))
@@ -814,7 +939,8 @@ def phase_small_train(seed=0, device="cuda"):
         grad_norm=abs(got["grad_norm"] / want["grad_norm"] - 1),
         params=max((got["params"][k] - want["params"][k]).abs().max().item()
                    for k in want["params"]))
-    print(f"[train-small] f32 {cfg.n_layers} layers, card vs CPU: loss "
+    print(f"[train-small] f32 {cfg.n_layers} layers, head dim {cfg.hdim}, "
+          f"card vs CPU: loss "
           f"{got['loss']:.6f} vs {want['loss']:.6f}; errors "
           f"{json.dumps(err)} (tol {json.dumps(SMALL_TRAIN_TOL)}); card "
           f"launches fwd/dq/dkv {got['launches']}, CPU {want['launches']}",
@@ -831,14 +957,36 @@ def phase_small_train(seed=0, device="cuda"):
 TRAIN_STEPS = 10
 
 
+def gemma2_train_config():
+    """Gemma-2-9B at its full width, head dim, windows and softcaps, cut to
+    8 layers (4 window + 4 global; 2.50 B parameters): the 42 layers'
+    float32 weights, grads and AdamW moments (9.24 B x 16 bytes = 148 GB)
+    are over the card's 80 GB, 8 layers' are 40 GB. The loss in chunks of
+    1024 positions keeps the 256128-wide f32 logits of L=8192 at ~1 GB a
+    chunk (8.4 GB whole)."""
+    return models.gemma2_9b().replace(n_layers=8, loss_chunk=1024)
+
+
+def _train_flops_per_token(cfg, l):
+    """Training FLOPs a token as ``bench.py`` counts them (6 N, embeddings
+    excluded), plus each layer's attention over the (q, k) pairs its band
+    keeps: 3 x 2 products of 2 hdim n_heads FLOPs a pair, so a window
+    layer is not credited with the pairs it skips."""
+    attn = sum(12 * cfg.hdim * cfg.n_heads
+               * _visible_pairs(l, l, True, w or None)
+               for w in cfg.layer_windows) / l
+    return cfg.flops_per_token() + attn
+
+
 def phase_train(card, seed=0, cfg=None, b=4, l=4096, device="cuda"):
-    """Llama-1B width and depth (16 layers), bf16 compute on float32
-    master weights from a seeded generator, full remat, AdamW 1e-4; one
-    fixed random batch of B=4, L=4096 (16,384 tokens a step). One warm-up
-    ``run_steps``, then ``run_steps(batch, 10)`` timed with the launch
-    counts set to 0 just before it. A NaN or inf at any step would reach
-    the parameters through AdamW and every later loss, so a finite loss
-    after the 10 steps covers each of them."""
+    """Llama-1B width and depth (16 layers) at B=4, L=4096 (16,384 tokens a
+    step), or another ``cfg`` (Gemma-2-9B width at 8 layers, B=1, L=8192);
+    bf16 compute on float32 master weights from a seeded generator, full
+    remat, AdamW 1e-4; one fixed random batch. One warm-up ``run_steps``,
+    then ``run_steps(batch, 10)`` timed with the launch counts set to 0
+    just before it. A NaN or inf at any step would reach the parameters
+    through AdamW and every later loss, so a finite loss after the 10 steps
+    covers each of them."""
     cfg = cfg or models.llama_1b()
     gen = torch.Generator(device=device).manual_seed(seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, l + 1),
@@ -850,9 +998,10 @@ def phase_train(card, seed=0, cfg=None, b=4, l=4096, device="cuda"):
         device=device)
     first = helper.run_steps(batch, 1)
     loss0 = first["loss"].item()
-    print(f"[train] {cfg.num_params() / 1e9:.3f} B params, set-up "
-          f"and warm-up step {time.perf_counter() - t0:.1f} s, loss "
-          f"{loss0:.4f}", flush=True)
+    print(f"[train] {cfg.num_params() / 1e9:.3f} B params, {cfg.n_layers} "
+          f"layers, head dim {cfg.hdim}, B={b} L={l}: set-up and warm-up "
+          f"step {time.perf_counter() - t0:.1f} s, loss {loss0:.4f}",
+          flush=True)
     torch.cuda.reset_peak_memory_stats()
     flash_cuda.launches = flash_cuda.launches_dq = flash_cuda.launches_dkv = 0
     t0 = time.perf_counter()
@@ -863,8 +1012,7 @@ def phase_train(card, seed=0, cfg=None, b=4, l=4096, device="cuda"):
     loss = metrics["loss"].item()
     grad_norm = metrics["grad_norm"].item()
     step_s = dt / TRAIN_STEPS
-    flops_token = cfg.flops_per_token() + (
-        6 * cfg.n_layers * cfg.hdim * cfg.n_heads * l)
+    flops_token = _train_flops_per_token(cfg, l)
     row = dict(step_ms=step_s * 1e3, tokens_per_s=b * l / step_s,
                mfu=flops_token * b * l / step_s / PEAK_BF16_FLOPS,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -895,16 +1043,23 @@ KERNEL_GROUPS = (("attention fwd (kernel 1)", ("flash_fwd",)),
 
 def _device_breakdown(fn, step_ms):
     """Device time of one call of ``fn`` by kernel group, from
-    ``torch.profiler``: (kernel ms, {group: ms}, top kernels). The busy
-    share is taken against ``step_ms``, the unprofiled step time."""
+    ``torch.profiler``: (device ms, {group: ms}, top kernels). Only the
+    device's own activity counts (kernels, copies, memsets): a user
+    annotation such as ``Optimizer.step#AdamW.step`` is also a CUDA-typed
+    event, spanning kernels already counted. The busy share is taken
+    against ``step_ms``, the unprofiled step time; the device time cannot
+    exceed the profiled call's own wall time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     groups, kernels = {}, []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.is_user_annotation):
             continue
         ms = evt.self_device_time_total / 1e3
         kernels.append((ms, evt.key, evt.count))
@@ -915,9 +1070,13 @@ def _device_breakdown(fn, step_ms):
     total = sum(groups.values())
     top = [dict(kernel=k[:80], ms=m, calls=n)
            for m, k, n in sorted(kernels, reverse=True)[:8]]
-    print(f"[train-profile] one step: device kernel time {total:.1f} ms of "
-          f"{step_ms:.1f} ms (busy share {total / step_ms:.3f}); by group "
-          f"{json.dumps(groups)}; top kernels {json.dumps(top)}", flush=True)
+    print(f"[train-profile] one step: device time {total:.1f} ms of "
+          f"{step_ms:.1f} ms (busy share {total / step_ms:.3f}; the profiled "
+          f"step {wall_ms:.1f} ms); by group {json.dumps(groups)}; top "
+          f"kernels {json.dumps(top)}", flush=True)
+    if total > wall_ms:
+        raise AssertionError(f"device time {total:.1f} ms over the profiled "
+                             f"step's {wall_ms:.1f} ms: counted twice")
     return total, groups, top
 
 
@@ -948,10 +1107,27 @@ def _mix_row(name, source, replaces, launches, rows, mix):
                       mean("plain_ms"), (mean("bound_ms"),
                                          rows[by]["bound_by"]),
                       mean("library_ms"))
-    row.update(busy_ms=mean("busy_ms"), cases=mix)
-    if mean("sdpa_without_softcap_ms") is not None:
-        row["sdpa_without_softcap_ms"] = mean("sdpa_without_softcap_ms")
+    row.update(busy_ms=mean("busy_ms"),
+               library_busy_ms=mean("library_busy_ms"), cases=mix)
+    for key in ("sdpa_without_softcap_ms", "sdpa_bwd_without_softcap_ms"):
+        if mean(key) is not None:
+            row[key] = mean(key)
     return row
+
+
+def _bwd_kernel_rows(rows, kernel):
+    """The backward phase's rows seen as one kernel's (``dq`` or ``dkv``),
+    in the keys ``_mix_row`` reads."""
+    return {case: dict(max_abs_err=r["max_abs_err"][kernel],
+                       ms=r[f"{kernel}_ms"], busy_ms=r[f"{kernel}_busy_ms"],
+                       plain_ms=r["plain_ms"],
+                       bound_ms=r[f"{kernel}_bound_ms"],
+                       bound_by=r[f"{kernel}_bound_by"],
+                       library_ms=r["library_ms"],
+                       library_busy_ms=r["library_busy_ms"],
+                       sdpa_bwd_without_softcap_ms=r.get(
+                           "sdpa_bwd_without_softcap_ms"))
+            for case, r in rows.items()}
 
 
 def _phase(label, fn, *args, **kw):
@@ -969,12 +1145,25 @@ def main():
     bwd = _phase("bwd kernels", phase_bwd_kernels)
     _phase("small forward", phase_small_forward)
     _phase("small train", phase_small_train)
+    _phase("small train d256", phase_small_train, head_dim=256)
     cfg, params, launches = _phase("llama3_8b forward", phase_forward, card)
     _phase("llama3_8b serving", phase_serving, cfg, params, card)
     _phase("llama3_8b serving f32", phase_greedy_f32, cfg, params, card)
     del params
     torch.cuda.empty_cache()
     counts = _phase("llama_1b training", phase_train, card)
+    torch.cuda.empty_cache()
+    gemma_train = gemma2_train_config()
+    counts_d256 = _phase("gemma2_9b training (8 layers)", phase_train, card,
+                         cfg=gemma_train, b=1, l=8192)
+    torch.cuda.empty_cache()
+    # the training step's attention shapes: 4096-window and global layers
+    # at B=1, L=8192, each a backward case; launches over the timed steps
+    n_window = sum(1 for w in gemma_train.layer_windows if w)
+    train_mix = {
+        "gemma2_train_window4096_L8192_softcap50_d256": n_window * TRAIN_STEPS,
+        "gemma2_train_global_L8192_softcap50_d256":
+            (gemma_train.n_layers - n_window) * TRAIN_STEPS}
     cfg, params, launches_d256 = _phase("gemma2_9b forward", phase_forward,
                                         card, "gemma2-9b", b=1, l=8192)
     # the forward's attention shapes: 4096-window and global layers at
@@ -1000,27 +1189,38 @@ def main():
     torch.cuda.empty_cache()
     src = "ray_tpu_torch/ops/csrc/"
     d128 = fwd["causal"]
+    bwd_main = bwd["train_causal"]
     print(json.dumps({"kernels": [
         _kernel_row("flash_attention_fwd", src + "flash_fwd.cu",
                     "ray_tpu/ops/flash_pallas.py:63", launches,
                     d128["max_abs_err"], d128["ms"], d128["plain_ms"],
                     (d128["bound_ms"], d128["bound_by"]), d128["library_ms"]),
         # head dim 256: the gemma2_9b forward's window and global layers;
-        # no library call computes its softcap (library_ms null)
+        # library_ms is flex_attention's with the softcap
         _mix_row("flash_attention_fwd_d256", src + "flash_fwd.cu",
                  "ray_tpu/ops/flash_pallas.py:63", launches_d256, fwd,
                  d256_mix),
         _kernel_row("flash_attention_bwd_dkv", src + "flash_bwd.cu",
                     "ray_tpu/ops/flash_pallas.py:230", counts["dkv"],
-                    bwd["max_abs_err"]["dkv"], bwd["dkv_ms"],
-                    bwd["plain_ms"], (bwd["dkv_bound_ms"],
-                                      bwd["dkv_bound_by"]),
-                    bwd["library_ms"]),
+                    bwd_main["max_abs_err"]["dkv"], bwd_main["dkv_ms"],
+                    bwd_main["plain_ms"], (bwd_main["dkv_bound_ms"],
+                                           bwd_main["dkv_bound_by"]),
+                    bwd_main["library_ms"]),
         _kernel_row("flash_attention_bwd_dq", src + "flash_bwd.cu",
                     "ray_tpu/ops/flash_pallas.py:286", counts["dq"],
-                    bwd["max_abs_err"]["dq"], bwd["dq_ms"], bwd["plain_ms"],
-                    (bwd["dq_bound_ms"], bwd["dq_bound_by"]),
-                    bwd["library_ms"])]}))
+                    bwd_main["max_abs_err"]["dq"], bwd_main["dq_ms"],
+                    bwd_main["plain_ms"], (bwd_main["dq_bound_ms"],
+                                           bwd_main["dq_bound_by"]),
+                    bwd_main["library_ms"]),
+        # head dim 256: the Gemma-2 training step's window and global
+        # layers; library_ms is flex_attention's softcapped backward (SDPA's
+        # without the cap is sdpa_bwd_without_softcap_ms)
+        _mix_row("flash_attention_bwd_dkv_d256", src + "flash_bwd.cu",
+                 "ray_tpu/ops/flash_pallas.py:230", counts_d256["dkv"],
+                 _bwd_kernel_rows(bwd, "dkv"), train_mix),
+        _mix_row("flash_attention_bwd_dq_d256", src + "flash_bwd.cu",
+                 "ray_tpu/ops/flash_pallas.py:286", counts_d256["dq"],
+                 _bwd_kernel_rows(bwd, "dq"), train_mix)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

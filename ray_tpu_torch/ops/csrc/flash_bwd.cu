@@ -46,7 +46,7 @@
 //   by that warpgroup; tiles wholly outside the CTA's band are never loaded.
 //
 // - dQ (flash_bwd_dq_*): a CTA owns (batch, q head, 128-row q tile): Q and
-//   dO resident, K and V tiles of kDqBN rows streaming. Per tile:
+//   dO resident, K and V tiles of DqSmem<D>::kBN rows streaming. Per tile:
 //   S = Q K^T and dP = dO V^T (ss), P (times the softcap factor) computed
 //   while dP is in flight, dS = P (dP - D), dQ += dS K (K MN-major). It also
 //   computes D = rowsum(dO * O) for its rows while the first tiles load and
@@ -59,6 +59,11 @@
 //   that intersect the band (the TPU grid's sequential t = g * nq + qi axis
 //   becomes this loop). Per step: S^T = K Q^T and dP^T = V dO^T (ss), P^T
 //   and dS^T in registers, dV += P^T dO and dK += dS^T Q (dO, Q MN-major).
+// - head dim 256 (Gemma-2) keeps that design within the same 255
+//   registers and 227 KB: the streamed tiles are 32 rows (DqSmem,
+//   DkvSmem), and a 64 x 256 f32 accumulator is 128 registers a thread, so
+//   the dK/dV kernel holds one at a time and sweeps its q tiles twice, dV
+//   first, then dK, its warps refilling the ring (flash_bwd_dkv_sweeps_*).
 // - order: the tiles with the most causal work launch first. The dK/dV
 //   kernel takes them first across every (batch, kv head): the kv tile is
 //   the grid's slowest axis, so no late head's heavy tiles are left for a
@@ -146,20 +151,27 @@ constexpr int kRows = 64 * kWarpgroups;  // rows a CTA owns: 64 a warpgroup
 // stays out of the span in which a wgmma is in flight: warp-divergent code
 // there makes ptxas serialise the wgmma (C7518).
 constexpr int kBf16Threads = 128 * kWarpgroups;
-constexpr int kDqBN = 128;     // dQ: kv rows of a streamed K / V tile
+constexpr int kDqBN = 128;     // dQ: kv rows of a streamed K / V tile (D <= 128)
 constexpr int kDqStages = 2;   // dQ: K and V tiles in flight
-constexpr int kDkvBM = 64;     // dK/dV: q rows of a streamed Q / dO tile
+constexpr int kDkvBM = 64;     // dK/dV: q rows of a streamed Q / dO tile (D <= 128)
 constexpr int kDkvStages = 2;  // dK/dV: Q and dO tiles in flight
+// At D = 256 the owned rows alone take 128 KB (Q and dO, or K and V), so a
+// streamed tile is 32 rows in both kernels: two stages of two 16 KB tiles
+// bring a CTA to 192 KB of the 227 KB (64-row tiles: 256 KB). The score
+// tiles are then m64n32 products, four 64-column slabs deep, and the
+// accumulating products one m64n256k16 a 16-row k-step.
+constexpr int kWideRows = 32;
 
 // Dynamic shared memory of the dQ kernel, in bytes from a 1024-aligned
 // base: Q and dO (D / 64 slabs of kRows rows each), the K and V rings (each
-// tile D / 64 slabs of kDqBN rows), D of the CTA's rows, the mbarriers.
+// tile D / 64 slabs of kBN rows), D of the CTA's rows, the mbarriers.
 template <int D>
 struct DqSmem {
+    static constexpr int kBN = D <= 128 ? kDqBN : kWideRows;  // kv rows of a streamed tile
     static constexpr int kResSlab = kRows * 128;
-    static constexpr int kTileSlab = kDqBN * 128;
+    static constexpr int kTileSlab = kBN * 128;
     static constexpr int kResBytes = kRows * D * 2;
-    static constexpr int kTileBytes = kDqBN * D * 2;
+    static constexpr int kTileBytes = kBN * D * 2;
     static constexpr int kQ = 0;
     static constexpr int kDO = kQ + kResBytes;
     static constexpr int kK = kDO + kResBytes;
@@ -170,22 +182,25 @@ struct DqSmem {
     static constexpr size_t kBytes = kBars + 8 * kNumBars + 1024;  // + alignment slack
 };
 
-// Dynamic shared memory of the dK/dV kernel: K and V (D / 64 slabs of
-// kRows rows each), the Q and dO rings (each tile D / 64 slabs of kDkvBM
-// rows), the lse and D rings (kDkvBM floats a stage), the mbarriers.
+// Dynamic shared memory of the dK/dV kernels: K and V (D / 64 slabs of
+// kRows rows each), the Q and dO rings (each tile D / 64 slabs of kBM
+// rows), the lse and D rings (kBM floats a stage), the mbarriers. At
+// D = 256 the ring carries each step twice, once a sweep (kSweeps).
 template <int D>
 struct DkvSmem {
+    static constexpr int kBM = D <= 128 ? kDkvBM : kWideRows;  // q rows of a streamed tile
+    static constexpr int kSweeps = D <= 128 ? 1 : 2;
     static constexpr int kResSlab = kRows * 128;
-    static constexpr int kTileSlab = kDkvBM * 128;
+    static constexpr int kTileSlab = kBM * 128;
     static constexpr int kResBytes = kRows * D * 2;
-    static constexpr int kTileBytes = kDkvBM * D * 2;
+    static constexpr int kTileBytes = kBM * D * 2;
     static constexpr int kK = 0;
     static constexpr int kV = kK + kResBytes;
     static constexpr int kQ = kV + kResBytes;
     static constexpr int kDO = kQ + kDkvStages * kTileBytes;
     static constexpr int kL = kDO + kDkvStages * kTileBytes;
-    static constexpr int kD = kL + kDkvStages * kDkvBM * 4;
-    static constexpr int kBars = kD + kDkvStages * kDkvBM * 4;
+    static constexpr int kD = kL + kDkvStages * kBM * 4;
+    static constexpr int kBars = kD + kDkvStages * kBM * 4;
     static constexpr int kNumBars = 1 + 2 * kDkvStages;  // K + V full; stage full and empty
     static constexpr size_t kBytes = kBars + 8 * kNumBars + 1024;
 };
@@ -293,6 +308,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv) {
     using S = DqSmem<D>;
+    constexpr int kBN = S::kBN;
     constexpr int kSlabs = D / 64;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = align1024(smem_raw);
@@ -305,7 +321,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     const int h = blockIdx.y, b = blockIdx.z;
     const int hk = h / (p.H / p.Hk);
     int kt_begin, kt_end;
-    live_tiles(p, q0, kRows, kDqBN, &kt_begin, &kt_end);
+    live_tiles(p, q0, kRows, kBN, &kt_begin, &kt_end);
     const int n_tiles = max(kt_end - kt_begin, 0);
 
     if (threadIdx.x == 0) {
@@ -320,7 +336,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 
     // issue tile i's K and V copies into stage i % kDqStages (one thread)
     auto load_tile = [&](int i) {
-        const int s = i % kDqStages, k0 = (kt_begin + i) * kDqBN;
+        const int s = i % kDqStages, k0 = (kt_begin + i) * kBN;
         unsigned char* sk = smem + S::kK + s * S::kTileBytes;
         unsigned char* sv = smem + S::kV + s * S::kTileBytes;
         mbar_arrive_expect_tx(full + s, 2 * S::kTileBytes);
@@ -369,34 +385,34 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         const uint32_t do_addr = smem_u32(smem + S::kDO) + cw * 64 * 128;
         const uint32_t k_addr = smem_u32(smem + S::kK);
         const uint32_t v_addr = smem_u32(smem + S::kV);
-        float sc[kDqBN / 2], dp[kDqBN / 2];  // S (then P) and dP of a tile
+        float sc[kBN / 2], dp[kBN / 2];  // S (then P) and dP of a tile
         zero(sc);
         zero(dp);
         mbar_wait(q_full, 0);
         for (int i = 0; i < n_tiles; ++i) {
             const int s = i % kDqStages;
             const uint32_t parity = (i / kDqStages) & 1;
-            const int k0 = (kt_begin + i) * kDqBN;
+            const int k0 = (kt_begin + i) * kBN;
             const uint32_t k_tile = k_addr + s * S::kTileBytes;
             const uint32_t v_tile = v_addr + s * S::kTileBytes;
             mbar_wait(full + s, parity);
             // a tile wholly outside this warpgroup's band adds nothing
             if (!((p.causal && k0 > qw + 63) ||
-                  (p.window > 0 && qw - (k0 + kDqBN - 1) >= p.window))) {
-                issue_ss<kDqBN, D>(sc, q_addr, S::kResSlab, k_tile, S::kTileSlab);  // S = Q K^T
-                issue_ss<kDqBN, D>(dp, do_addr, S::kResSlab, v_tile, S::kTileSlab);  // dP = dO V^T
+                  (p.window > 0 && qw - (k0 + kBN - 1) >= p.window))) {
+                issue_ss<kBN, D>(sc, q_addr, S::kResSlab, k_tile, S::kTileSlab);  // S = Q K^T
+                issue_ss<kBN, D>(dp, do_addr, S::kResSlab, v_tile, S::kTileSlab);  // dP = dO V^T
                 wgmma_wait<1>();
                 fence_regs(sc);
                 // P times the softcap factor, in place of S, while dP is in flight
-                const bool inside = k0 + kDqBN <= p.Lk && (!p.causal || k0 + kDqBN - 1 <= qw) &&
+                const bool inside = k0 + kBN <= p.Lk && (!p.causal || k0 + kBN - 1 <= qw) &&
                                     (p.window <= 0 || qw + 63 - k0 < p.window);
                 if (inside && p.softcap <= 0.f) {
 #pragma unroll
-                    for (int j = 0; j < kDqBN / 2; ++j)
+                    for (int j = 0; j < kBN / 2; ++j)
                         sc[j] = ex2(fmaf(sc[j], scale_log2, -lse2[(j >> 1) & 1]));
                 } else {
 #pragma unroll
-                    for (int j = 0; j < kDqBN / 2; ++j) {
+                    for (int j = 0; j < kBN / 2; ++j) {
                         const int r = (j >> 1) & 1, col = k0 + 8 * (j / 4) + cq + (j & 1);
                         const float s_hat = capped(p, sc[j]);
                         const float sm = inside || visible(p, rows[r], col) ? s_hat : NEG_INF;
@@ -406,9 +422,9 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                 wgmma_wait<0>();
                 fence_regs(dp);
                 // dS = P (dP - D) in bf16, the A operand of dQ += dS K
-                uint32_t da[kDqBN / 16][4];
+                uint32_t da[kBN / 16][4];
 #pragma unroll
-                for (int kk = 0; kk < kDqBN / 16; ++kk) {
+                for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
                         const int j = 8 * kk + 2 * e;
@@ -417,7 +433,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                     }
                 }
                 wgmma_fence();
-                issue_rs<kDqBN, D>(dq, da, k_tile, S::kTileSlab);
+                issue_rs<kBN, D>(dq, da, k_tile, S::kTileSlab);
                 wgmma_commit();
                 wgmma_wait<0>();
                 fence_regs(dq);
@@ -438,7 +454,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 // Start loading step ``it`` of the dK/dV ring into stage it % kDkvStages, by
 // one warp: Q and dO by TMA (lane 0), lse and D by cp.async (every lane,
 // which arrives on the stage's full barrier once its copies land), so the
-// warp goes on at once.
+// warp goes on at once. A sweep walks group * n_live steps; with two
+// sweeps, step it and step it + group * n_live load the same tiles.
 template <int D>
 __device__ __forceinline__ void load_dkv_step(const BwdParams& p, unsigned char* smem,
                                               const CUtensorMap* tq, const CUtensorMap* tdo,
@@ -446,12 +463,13 @@ __device__ __forceinline__ void load_dkv_step(const BwdParams& p, unsigned char*
                                               int n_live, int qt_begin, int lane) {
     using S = DkvSmem<D>;
     const int s = it % kDkvStages;
-    const int h = hk * group + it / n_live;
-    const int q0 = (qt_begin + it % n_live) * kDkvBM;
+    const int j = S::kSweeps > 1 ? it % (group * n_live) : it;
+    const int h = hk * group + j / n_live;
+    const int q0 = (qt_begin + j % n_live) * S::kBM;
     const int64_t base = (int64_t(b) * p.H + h) * p.Lq;
-    float* sl = reinterpret_cast<float*>(smem + S::kL) + s * kDkvBM;
-    float* sd = reinterpret_cast<float*>(smem + S::kD) + s * kDkvBM;
-    for (int r = lane; r < kDkvBM; r += 32) {
+    float* sl = reinterpret_cast<float*>(smem + S::kL) + s * S::kBM;
+    float* sd = reinterpret_cast<float*>(smem + S::kD) + s * S::kBM;
+    for (int r = lane; r < S::kBM; r += 32) {
         const bool in = q0 + r < p.Lq;
         const int64_t at = base + (in ? q0 + r : 0);
         cp_async4(sl + r, p.lse + at, in);
@@ -620,6 +638,205 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                   p.dk_sl, dk, kv_rows, p.Lk, cq, p.scale);
     store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + int64_t(b) * p.dv_sb + int64_t(hk) * p.dv_sh,
                   p.dv_sl, dv, kv_rows, p.Lk, cq, 1.f);
+}
+
+// One step of a dK/dV sweep at D = 256 for this warpgroup's 64 kv rows
+// (from kw) against the q tile at q0 (addresses q_tile and do_tile, its lse
+// and D rows cl and cd): S^T = K Q^T (ss) and, in the dK sweep (kDk),
+// dP^T = V dO^T; then P^T (dV sweep) or dS^T (dK sweep) in bf16 as the A
+// operand of acc += P^T dO or acc += dS^T Q (dO, Q MN-major). A score's row
+// is the q position (the column here), its column the kv position.
+template <int D, bool kDk>
+__device__ __forceinline__ void dkv_sweep_step(const BwdParams& p, float (&acc)[D / 2],
+                                               float (&st)[kWideRows / 2],
+                                               float (&dpt)[kWideRows / 2], uint32_t k_addr,
+                                               uint32_t v_addr, uint32_t q_tile, uint32_t do_tile,
+                                               const float* cl, const float* cd, int q0, int kw,
+                                               const int (&kv_rows)[2], int cq) {
+    using S = DkvSmem<D>;
+    constexpr int kBM = S::kBM;
+    issue_ss<kBM, D>(st, k_addr, S::kResSlab, q_tile, S::kTileSlab);  // S^T = K Q^T
+    if constexpr (kDk)
+        issue_ss<kBM, D>(dpt, v_addr, S::kResSlab, do_tile, S::kTileSlab);  // dP^T = V dO^T
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    const bool inside = q0 + kBM <= p.Lq && kw + 64 <= p.Lk && (!p.causal || kw + 63 <= q0) &&
+                        (p.window <= 0 || q0 + kBM - 1 - kw < p.window);
+    const float scale_log2 = p.scale * kLog2e;
+    uint32_t a[kBM / 16][4];
+    if (inside && p.softcap <= 0.f) {
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int j = 8 * kk + 2 * e, c = 16 * kk + 8 * (e >> 1) + cq;
+                const float2 l2 = *reinterpret_cast<const float2*>(cl + c);
+                const float p0 = ex2(fmaf(st[j], scale_log2, -l2.x * kLog2e));
+                const float p1 = ex2(fmaf(st[j + 1], scale_log2, -l2.y * kLog2e));
+                if constexpr (kDk) {
+                    const float2 d2 = *reinterpret_cast<const float2*>(cd + c);
+                    a[kk][e] = pack_bf16(p0 * (dpt[j] - d2.x), p1 * (dpt[j + 1] - d2.y));
+                } else {
+                    a[kk][e] = pack_bf16(p0, p1);
+                }
+            }
+        }
+    } else {
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int j = 8 * kk + 2 * e, c = 16 * kk + 8 * (e >> 1) + cq;
+                float g[2];
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                    const int q_row = q0 + c + u;
+                    const float s_hat = capped(p, st[j + u]);
+                    const bool in = inside || (q_row < p.Lq && visible(p, q_row, kv_rows[e & 1]));
+                    g[u] = ex2(((in ? s_hat : NEG_INF) - cl[c + u]) * kLog2e);
+                    if constexpr (kDk) g[u] *= (dpt[j + u] - cd[c + u]) * cap_factor(p, s_hat);
+                }
+                a[kk][e] = pack_bf16(g[0], g[1]);
+            }
+        }
+    }
+    wgmma_fence();
+    issue_rs<kBM, D>(acc, a, kDk ? q_tile : do_tile, S::kTileSlab);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+}
+
+// dK/dV at D = 256 (DkvSmem<256>): one 64 x 256 f32 accumulator is 128
+// registers a thread, so dK and dV together (256) do not fit the 255 a
+// thread can have, before any score tile. This kernel keeps K and V
+// resident as the fused one does and walks its (q head, q tile) steps
+// twice through one ring, holding one accumulator at a time: the dV sweep
+// (S^T = K Q^T, then dV += P^T dO), which stores dV when it ends, then the
+// dK sweep (S^T = K Q^T and dP^T = V dO^T, then dK += dS^T Q). That is five
+// products a step pair against the fused sweep's four; splitting D's
+// columns instead would recompute both score tiles for each half (six).
+// The ring runs on from one sweep into the next. Warp 0 loads the first
+// round; after that the last warp to release a stage, elected by a shared
+// counter as in the forward kernel at D = 256, refills it, so neither
+// warpgroup waits for the other: 9-10% faster here than warp 0 waiting for
+// both (PERF.md, bwd variants).
+template <int D>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dkv_sweeps_bf16_kernel(const __grid_constant__ BwdParams p,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tdo) {
+    using S = DkvSmem<D>;
+    static_assert(S::kBM == kWideRows, "the sweeps take kWideRows-row q tiles");
+    constexpr int kSlabs = D / 64;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::kBars);  // K and V
+    uint64_t* full = kv_full + 1;              // Q, dO, lse, D of a stage
+    uint64_t* empty = full + kDkvStages;
+    const float* ring_lse = reinterpret_cast<const float*>(smem + S::kL);
+    const float* ring_delta = reinterpret_cast<const float*>(smem + S::kD);
+
+    // the low kv tiles, the heaviest, first across every (batch, kv head)
+    const int k0 = blockIdx.z * kRows, hk = blockIdx.x, b = blockIdx.y;
+    const int group = p.H / p.Hk;
+    int qt_begin, qt_end;
+    live_q_tiles(p, k0, kRows, S::kBM, &qt_begin, &qt_end);
+    const int n_live = max(qt_end - qt_begin, 0);
+    const int n_sweep = group * n_live;  // (q head of the group, q tile) pairs
+    const int n_steps = 2 * n_sweep;     // the dV sweep, then the dK sweep
+    __shared__ uint32_t releases[kDkvStages];  // warps done with a stage, all uses
+
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        for (int s = 0; s < kDkvStages; ++s) {
+            mbar_init(full + s, 33);  // one warp's lanes' copies and its lane 0's TMA
+            mbar_init(empty + s, 4 * kWarpgroups);  // one arrival a warp
+            releases[s] = 0;
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && n_steps > 0) {  // K, V and the first round of the ring
+        if (lane == 0) {
+            mbar_arrive_expect_tx(kv_full, 2 * S::kResBytes);
+            for (int c = 0; c < kSlabs; ++c) {
+                tma_load_4d(smem + S::kK + c * S::kResSlab, &tk, kv_full, c * 64, hk, k0, b);
+                tma_load_4d(smem + S::kV + c * S::kResSlab, &tv, kv_full, c * 64, hk, k0, b);
+            }
+        }
+        for (int first = 0; first < min(kDkvStages, n_steps); ++first)
+            load_dkv_step<D>(p, smem, &tq, &tdo, full, first, b, hk, group, n_live, qt_begin, lane);
+    }
+
+    const int cw = warp / 4;  // this warpgroup's kv rows: k0 + 64 cw ..
+    const int kw = k0 + 64 * cw;
+    const int r0 = 16 * (warp % 4) + lane / 4;  // kv rows r0 and r0 + 8 of the 64
+    const int cq = (lane % 4) * 2;              // q columns cq, cq + 1 of each 8
+    const int kv_rows[2] = {kw + r0, kw + r0 + 8};
+    const uint32_t k_addr = smem_u32(smem + S::kK) + cw * 64 * 128;
+    const uint32_t v_addr = smem_u32(smem + S::kV) + cw * 64 * 128;
+    const uint32_t q_ring = smem_u32(smem + S::kQ);
+    const uint32_t do_ring = smem_u32(smem + S::kDO);
+
+    float acc[D / 2];                                 // dV, then dK
+    float st[kWideRows / 2], dpt[kWideRows / 2];      // S^T and dP^T of a step
+    zero(acc);
+    zero(st);
+    zero(dpt);
+    if (n_steps > 0) mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_steps; ++it) {
+        if (it == n_sweep) {  // the dV sweep is done
+            store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + int64_t(b) * p.dv_sb +
+                              int64_t(hk) * p.dv_sh,
+                          p.dv_sl, acc, kv_rows, p.Lk, cq, 1.f);
+            zero(acc);
+        }
+        const int s = it % kDkvStages;
+        const int q0 = (qt_begin + (it % n_sweep) % n_live) * S::kBM;
+        mbar_wait(full + s, (it / kDkvStages) & 1);
+        // a q tile wholly outside this warpgroup's band adds nothing
+        if (!((p.causal && q0 + S::kBM - 1 < kw) ||
+              (p.window > 0 && q0 - (kw + 63) >= p.window))) {
+            const uint32_t q_tile = q_ring + s * S::kTileBytes;
+            const uint32_t do_tile = do_ring + s * S::kTileBytes;
+            const float* cl = ring_lse + s * S::kBM;
+            const float* cd = ring_delta + s * S::kBM;
+            if (it < n_sweep)
+                dkv_sweep_step<D, false>(p, acc, st, dpt, k_addr, v_addr, q_tile, do_tile, cl, cd,
+                                         q0, kw, kv_rows, cq);
+            else
+                dkv_sweep_step<D, true>(p, acc, st, dpt, k_addr, v_addr, q_tile, do_tile, cl, cd,
+                                        q0, kw, kv_rows, cq);
+        }
+        // release the stage; the last of the 8 warps to do so refills it
+        // (the counter grows by 8 a use of the stage, and a use starts only
+        // after the last one's refill)
+        __syncwarp();
+        uint32_t last = 0;
+        if (lane == 0) {
+            mbar_arrive(empty + s);
+            if (it + kDkvStages < n_steps)
+                last = atomicAdd(releases + s, 1u) % (4 * kWarpgroups) == 4 * kWarpgroups - 1;
+        }
+        if (__shfl_sync(0xffffffffu, last, 0)) {
+            mbar_wait(empty + s, (it / kDkvStages) & 1);  // every warp's arrival is visible
+            load_dkv_step<D>(p, smem, &tq, &tdo, full, it + kDkvStages, b, hk, group, n_live,
+                             qt_begin, lane);
+        }
+        __syncwarp();
+    }
+    if (n_steps == 0)  // no q row sees these kv rows: dV is 0 too
+        store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + int64_t(b) * p.dv_sb +
+                          int64_t(hk) * p.dv_sh,
+                      p.dv_sl, acc, kv_rows, p.Lk, cq, 1.f);
+    store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + int64_t(b) * p.dk_sb + int64_t(hk) * p.dk_sh,
+                  p.dk_sl, acc, kv_rows, p.Lk, cq, p.scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -879,8 +1096,8 @@ static cudaError_t launch_dq(const BwdParams& p, int dtype, cudaStream_t st) {
         const MapSpec specs[4] = {  // Q, dO (resident); K, V (streamed)
             {p.q, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, kRows},
             {p.dout, p.Lq, p.H, D, p.do_sb, p.do_sl, p.do_sh, kRows},
-            {p.k, p.Lk, p.Hk, D, p.k_sb, p.k_sl, p.k_sh, kDqBN},
-            {p.v, p.Lk, p.Hk, D, p.v_sb, p.v_sl, p.v_sh, kDqBN}};
+            {p.k, p.Lk, p.Hk, D, p.k_sb, p.k_sl, p.k_sh, DqSmem<D>::kBN},
+            {p.v, p.Lk, p.Hk, D, p.v_sb, p.v_sl, p.v_sh, DqSmem<D>::kBN}};
         return launch_bf16(flash_bwd_dq_bf16_kernel<D>, dim3((p.Lq + kRows - 1) / kRows, p.H, p.B),
                            kBf16Threads, DqSmem<D>::kBytes, p, specs, st);
     }
@@ -894,11 +1111,15 @@ static cudaError_t launch_dkv(const BwdParams& p, int dtype, cudaStream_t st) {
         const MapSpec specs[4] = {  // K, V (resident); Q, dO (streamed)
             {p.k, p.Lk, p.Hk, D, p.k_sb, p.k_sl, p.k_sh, kRows},
             {p.v, p.Lk, p.Hk, D, p.v_sb, p.v_sl, p.v_sh, kRows},
-            {p.q, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, kDkvBM},
-            {p.dout, p.Lq, p.H, D, p.do_sb, p.do_sl, p.do_sh, kDkvBM}};
-        return launch_bf16(flash_bwd_dkv_bf16_kernel<D>,
-                           dim3(p.Hk, p.B, (p.Lk + kRows - 1) / kRows), kBf16Threads,
-                           DkvSmem<D>::kBytes, p, specs, st);
+            {p.q, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh, DkvSmem<D>::kBM},
+            {p.dout, p.Lq, p.H, D, p.do_sb, p.do_sl, p.do_sh, DkvSmem<D>::kBM}};
+        const dim3 grid = dim3(p.Hk, p.B, (p.Lk + kRows - 1) / kRows);
+        if constexpr (DkvSmem<D>::kSweeps > 1)
+            return launch_bf16(flash_bwd_dkv_sweeps_bf16_kernel<D>, grid, kBf16Threads,
+                               DkvSmem<D>::kBytes, p, specs, st);
+        else
+            return launch_bf16(flash_bwd_dkv_bf16_kernel<D>, grid, kBf16Threads,
+                               DkvSmem<D>::kBytes, p, specs, st);
     }
     return launch(flash_bwd_dkv_f32_kernel<D>,
                   dim3((p.Lk + kF32Rows - 1) / kF32Rows, p.Hk, p.B), f32_smem_bytes<D>(), p, st);
@@ -946,6 +1167,7 @@ extern "C" int flash_attention_bwd_dq(void* const* ptrs, const int64_t* strides,
     if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
     if (D == 64) return int(launch_dq<64>(p, dtype, st));
     if (D == 128) return int(launch_dq<128>(p, dtype, st));
+    if (D == 256) return int(launch_dq<256>(p, dtype, st));
     return int(cudaErrorInvalidValue);
 }
 
@@ -959,5 +1181,6 @@ extern "C" int flash_attention_bwd_dkv(void* const* ptrs, const int64_t* strides
     if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
     if (D == 64) return int(launch_dkv<64>(p, dtype, st));
     if (D == 128) return int(launch_dkv<128>(p, dtype, st));
+    if (D == 256) return int(launch_dkv<256>(p, dtype, st));
     return int(cudaErrorInvalidValue);
 }

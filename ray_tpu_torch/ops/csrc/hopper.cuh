@@ -201,6 +201,19 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 32) (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
 __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uint32_t (&a)[4],
                                                      uint64_t desc_b) {
@@ -262,17 +275,19 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128], const ui
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// the same products by output width N (64 or 128; the register-A product
-// also 256), for kernels whose tile widths are template or constexpr
-// parameters
+// the same products by output width N (32, 64 or 128; the register-A
+// product 64, 128 or 256), for kernels whose tile widths are template or
+// constexpr parameters
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
-    static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+    static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
     if constexpr (N == 128)
         wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
-    else
+    else if constexpr (N == 64)
         wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+    else
+        wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
 }
 
 template <int N>

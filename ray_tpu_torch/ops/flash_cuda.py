@@ -12,6 +12,8 @@ first use and loaded with ctypes.
   ``dout``, as ``flash_attention_pallas_bwd`` does, and returns
   ``(dq, dk, dv)`` with dk/dv at the native kv-head count.
 
+Both take head dims 64, 128 and 256 (Gemma-2's), in bfloat16 or float32.
+
 Ragged lengths are masked inside the kernels. For CPU tensors each wrapper
 computes its plain PyTorch version (``*_reference``); for CUDA tensors it
 launches its kernels or raises.
@@ -37,7 +39,7 @@ launches_dq = 0
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 #: head dims the forward kernel takes, and the backward kernels
 FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 _BWD_ARGS = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)]
              + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 # C entry points of each source: argument types
@@ -237,8 +239,9 @@ def flash_attention_bwd(
     CPU tensors: the plain version. CUDA tensors: the dQ kernel (which
     also writes D = rowsum(dO * O)) and then the dK/dV kernel, on the
     current stream, for bfloat16 or float32 q/k/v/out/dout (all alike),
-    float32 lse ``[B, H, Lq]`` and head dim 64 or 128; anything else
-    raises (head dim 256 too: its backward kernels are not written yet).
+    float32 lse ``[B, H, Lq]`` and head dim 64, 128 or 256; anything else
+    raises. At head dim 256 the dK/dV kernel sweeps the q tiles twice
+    (dV, then dK) in its one launch.
     """
     global launches_dkv, launches_dq
     _require_causal_window(causal, window)

@@ -1,6 +1,6 @@
-"""The port's kernels on the card: the Hopper flash-attention forward (head
-dims 64, 128 and 256) and backward (dQ, dK/dV; 64 and 128) against their
-plain PyTorch versions, and the CUDA autograd path running them.
+"""The port's kernels on the card: the Hopper flash-attention forward and
+backward (dQ, dK/dV), at head dims 64, 128 and 256, against their plain
+PyTorch versions, and the CUDA autograd path running them.
 
 Marked ``cuda``; each test skips (with the reason) where no GPU is
 present. This file imports no JAX, so on a GPU machine without JAX it runs
@@ -151,22 +151,21 @@ def test_kernel_repeat_is_bitwise_equal_d256(cuda):
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
-def test_d256_backward_raises_without_a_fallback(cuda):
-    """The forward kernel takes head dim 256, the backward kernels do not
-    yet: flash_attention_bwd raises (naming the head dim) and never runs
-    the plain version on CUDA tensors, and so does autograd's backward."""
-    q = torch.randn(1, 64, 2, 256, device=cuda, dtype=torch.bfloat16,
-                    requires_grad=True)
-    out, lse = flash_cuda.flash_attention_fwd(q.detach(), q.detach(),
-                                              q.detach())
+def test_unsupported_head_dim_backward_raises_without_a_fallback(
+        cuda, monkeypatch):
+    """A head dim the backward kernels do not take (96): flash_attention_bwd
+    raises naming it, launches no kernel and never runs the plain version
+    on CUDA tensors."""
+    plain = []
+    monkeypatch.setattr(flash_cuda, "flash_attention_bwd_reference",
+                        lambda *a, **k: plain.append(1))
+    q = torch.randn(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
     before = (flash_cuda.launches_dq, flash_cuda.launches_dkv)
-    with pytest.raises(ValueError, match="head dim 256"):
-        flash_cuda.flash_attention_bwd(q.detach(), q.detach(), q.detach(),
-                                       out, lse, out)
-    o = attention.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head dim 256"):
-        o.sum().backward()
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_cuda.flash_attention_bwd(q, q, q, q, lse, q)
     assert (flash_cuda.launches_dq, flash_cuda.launches_dkv) == before
+    assert not plain
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -187,6 +186,12 @@ BWD_CASES = [
     (1, 260, 100, 4, 2, 128, torch.bfloat16, True, None, 0.0),
     (1, 200, 200, 4, 2, 64, torch.float32, True, 24, 0.0),
     (1, 130, 70, 2, 2, 128, torch.float32, False, None, 30.0),
+    # head dim 256 (Gemma-2): 32-row streamed tiles, dK/dV in two sweeps
+    (1, 300, 300, 4, 2, 256, torch.bfloat16, True, 48, 50.0),
+    (2, 200, 200, 4, 2, 256, torch.bfloat16, True, None, 0.0),
+    (1, 100, 260, 4, 4, 256, torch.bfloat16, False, None, 0.0),
+    (1, 260, 100, 4, 2, 256, torch.bfloat16, True, None, 0.0),
+    (1, 200, 200, 4, 2, 256, torch.float32, True, 24, 30.0),
 ]
 # max |kernel - plain| over max |plain|: bf16 rounds P and dS to 8 bits in
 # the products and the grads once; f32 sums in another order
@@ -241,8 +246,9 @@ def test_bwd_kernels_read_strided_inputs(cuda):
 
 
 # the edges of the bf16 backward kernels' tiles: 128 owned rows a CTA (64 a
-# consumer warpgroup), 64 streamed rows a step; Lq != Lk without the causal
-# mask at D = 64; windows whose band crosses a 128-row tile
+# consumer warpgroup), 64 streamed rows a step (32 at D = 256); Lq != Lk
+# without the causal mask; windows whose band crosses a 128-row tile, or
+# that no 32-row tile divides
 # (B, Lq, Lk, H, Hk, D, causal, window)
 BWD_EDGE_CASES = [
     (1, 63, 63, 4, 2, 128, True, None),
@@ -257,6 +263,14 @@ BWD_EDGE_CASES = [
     (1, 65, 200, 2, 1, 64, False, None),
     (1, 300, 300, 4, 2, 128, True, 100),
     (1, 260, 260, 4, 2, 64, True, 70),
+    (1, 31, 31, 4, 2, 256, True, None),
+    (1, 32, 32, 4, 2, 256, True, None),
+    (1, 33, 33, 4, 2, 256, True, None),
+    (1, 129, 129, 4, 2, 256, True, None),
+    (2, 200, 200, 4, 1, 256, True, None),
+    (1, 129, 300, 4, 2, 256, False, None),
+    (1, 300, 129, 4, 4, 256, False, None),
+    (1, 300, 300, 4, 2, 256, True, 70),
 ]
 
 
@@ -306,14 +320,20 @@ def test_bwd_kernels_read_batch_and_head_strides(cuda):
             assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-def test_bwd_repeat_is_bitwise_equal(cuda, dtype):
+@pytest.mark.parametrize(
+    "dtype,d", [(torch.bfloat16, 128), (torch.float32, 128),
+                (torch.bfloat16, 256), (torch.float32, 256)],
+    ids=["torch.bfloat16", "torch.float32", "torch.bfloat16-d256",
+         "torch.float32-d256"])
+def test_bwd_repeat_is_bitwise_equal(cuda, dtype, d):
     """No atomics and a fixed order of sums: a repeat call gives the same
-    bits, with GQA, a window and ragged lengths."""
+    bits, with GQA, a window and ragged lengths; at D = 256 the warps that
+    refill the dK/dV ring are elected by a shared counter, and the bits
+    stay the same."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    q, dout = (torch.randn(2, 300, 4, 128, generator=gen, device=cuda).to(
+    q, dout = (torch.randn(2, 300, 4, d, generator=gen, device=cuda).to(
         dtype) for _ in range(2))
-    k, v = (torch.randn(2, 300, 2, 128, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 300, 2, d, generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     out, lse = flash_cuda.flash_attention_fwd(q, k, v, window=100)
     first = flash_cuda.flash_attention_bwd(q, k, v, out, lse, dout,
@@ -402,3 +422,31 @@ def test_cuda_flash_attention_backward_runs_kernels(cuda):
         assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]
     with pytest.raises(ValueError, match="cannot run on cuda"):
         attention.flash_attention(q, k, v, impl="blockwise")
+
+
+def test_cuda_flash_attention_backward_runs_kernels_d256(cuda):
+    """The same at Gemma-2's head dim 256 with its softcap and a window:
+    autograd launches the three kernels once each, and the grads agree with
+    the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = (torch.randn(1, 300, 4, 256, generator=gen, device=cuda) * 4).to(
+        torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(1, 300, 2, 256, generator=gen, device=cuda,
+                        dtype=torch.bfloat16, requires_grad=True)
+            for _ in range(2))
+    dout = torch.randn(1, 300, 4, 256, generator=gen, device=cuda,
+                       dtype=torch.bfloat16)
+    kw = dict(window=100, softcap=50.0)
+    before = (flash_cuda.launches, flash_cuda.launches_dq,
+              flash_cuda.launches_dkv)
+    out = attention.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert (flash_cuda.launches, flash_cuda.launches_dq,
+            flash_cuda.launches_dkv) == tuple(n + 1 for n in before)
+    ref_out, ref_lse = flash_cuda.flash_attention_fwd_reference(
+        q.detach(), k.detach(), v.detach(), **kw)
+    want = flash_cuda.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), ref_out, ref_lse, dout, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]

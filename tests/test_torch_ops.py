@@ -440,6 +440,36 @@ def test_flash_bwd_reference_matches_pallas_interpret(case):
         _close(gt, wt, atol=2e-5 * amp)
 
 
+@pytest.mark.modern_jax
+@pytest.mark.parametrize("case", ["causal_softcap50", "window48_softcap50"])
+def test_flash_bwd_reference_matches_pallas_interpret_d256(case):
+    """Head dim 256 (Gemma-2's), the shape the backward kernels take at
+    D = 256: (dq, dk, dv) of flash_attention_bwd_reference against the
+    Pallas backward (interpret mode, 128-tiles) on the Pallas forward's out
+    and lse, GQA 4/2, softcap 50 with q widened by 8 so the cap and its
+    chain factor change the grads, causal or a window of 48. Tolerance
+    2e-5 x 8 absolute, as at D = 32: float32 sums in another order."""
+    from ray_tpu.ops.flash_pallas import (flash_attention_pallas_bwd,
+                                          flash_attention_pallas_fwd)
+
+    window = 48 if case.startswith("window") else None
+    q = _np(1, 256, 4, 256) * 8.0
+    k, v = _np(1, 256, 2, 256, seed=1), _np(1, 256, 2, 256, seed=2)
+    g = _np(1, 256, 4, 256, seed=3)
+    kw = dict(causal=True, window=window, softcap=50.0)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jo, jl = flash_attention_pallas_fwd(jq, jk, jv, block_q=128,
+                                        block_k=128, interpret=True, **kw)
+    want = flash_attention_pallas_bwd(jq, jk, jv, jo, jl, jg, block_q=128,
+                                      block_k=128, interpret=True, **kw)
+    got = flash_cuda.flash_attention_bwd_reference(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, jo, jl, g)),
+        **kw)
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape
+        _close(gt, wt, atol=2e-5 * 8.0)
+
+
 RAGGED_BWD_CASES = {
     # name: (Lq, Lk, Hk, causal, window, softcap); H = 4, D = 16
     "causal_L200": (200, 200, 2, True, None, 0.0),
