@@ -29,8 +29,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``models.forward`` at Llama-3-8B width (random bf16 weights from a
    seeded generator, all 32 layers) through the flash-attention kernel;
 6. serving: the paged ``LLMEngine`` answers 8 requests on the same weights
-   (prefix-cache hit, no leaked blocks), and its greedy tokens are held
-   against the kernel-backed forward, in bf16 and again in float32;
+   (prefix-cache hit, no leaked blocks), twice, with its programs captured
+   as CUDA graphs and again eagerly (``cuda_graphs=False``): the tokens of
+   the two are equal, call for call; its greedy tokens are held against
+   the kernel-backed forward, in bf16 and again in float32. For each
+   engine it prints TPOT p50 of both calls and one full-batch decode
+   step's wall, host and device ms (``torch.profiler``) and syncs; for the
+   captured one the capture seconds, graph-pool bytes, and the step's
+   FLOPs and FLOP/s from the device plane; a captured step must stage and
+   replay with no sync (``set_sync_debug_mode("error")``) and make one in
+   all (the logits' copy). Then, in float32, ``SpeculativeLLMEngine`` on
+   the same requests with the ngram drafter and with a draft model of the
+   target's first 4 layers, token-exact against the plain engine
+   (acceptance, tokens a round, TPOT p50 reported); and a prefill-only
+   engine's KV exports adopted by a decode engine, token-exact against
+   the colocated engine with no leaked block (the gather, scatter and
+   copy programs' replays timed);
 7. training: one float32 train step of a small gemma-style config on the
    card against the same step on the CPU (head dims 64 and 256), then
    ``TrainLoopHelper`` at Llama-1B width and depth (bf16 compute, f32
@@ -40,8 +54,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each with its device time by kernel group from ``torch.profiler``;
 8. Gemma-2-9B (all 42 layers, head dim 256, bf16 weights): ``models.forward``
    at B=1, L=8192 through the kernel at D = 256; the paged and the dense
-   (``paged=False``) engine each answer the 8 requests of phase 6, greedy
-   tokens held against the kernel-backed forward in bf16 and in float32;
+   (``paged=False``) engine each answer the 8 requests of phase 6 (eager
+   against captured, profiled, as there), greedy tokens held against the
+   kernel-backed forward in bf16 and in float32;
    ``models.generate`` (B=2, 256-token prompt, 32 new tokens), its f32
    tokens held against the f32 forward;
 9. Mistral-7B (all 32 layers, bf16 weights): ``models.generate`` on a
@@ -61,14 +76,16 @@ import re
 import shutil
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from ray_tpu_torch import models
 from ray_tpu_torch.ops import _build, flash_cuda
-from ray_tpu_torch.serve import LLMEngine
+from ray_tpu_torch.serve import LLMEngine, SpeculativeLLMEngine
 from ray_tpu_torch.train import TrainLoopHelper, adamw
+from ray_tpu_torch.util import device_plane
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
@@ -721,13 +738,20 @@ def _waves(cfg, seed):
 def _serve(eng, waves, new_tokens):
     """The second wave joins while the first decodes, once the first
     shared-prompt request has finished (so its blocks sit in the prefix
-    trie); returns [(prompt, emitted items)] and the wall time."""
-    sinks = []
+    trie); returns [(prompt, emitted items)], the wall time, and this
+    call's TTFT and TPOT p50 (seconds, host clock, from each emit's time)."""
+    sinks, stamps = [], []
 
     def submit(wave):
         for p in wave:
-            sinks.append((p, []))
-            eng.submit(p, new_tokens, sinks[-1][1].append)
+            out, ts = [], []
+            sinks.append((p, out))
+            stamps.append((time.perf_counter(), ts))
+
+            def emit(x, out=out, ts=ts):
+                ts.append(time.perf_counter())
+                out.append(x)
+            eng.submit(p, new_tokens, emit)
 
     t0 = time.perf_counter()
     submit(waves[0])
@@ -744,7 +768,10 @@ def _serve(eng, waves, new_tokens):
         if out[-1] is not None or len(out) != new_tokens + 1:
             raise AssertionError(f"request of {len(p)} tokens got {out[-3:]}"
                                  f" ({len(out)} items)")
-    return sinks, wall
+    ttft = [ts[0] - t_sub for t_sub, ts in stamps]
+    tpot = [b - a for _, ts in stamps for a, b in zip(ts[:-2], ts[1:-1])]
+    return sinks, wall, dict(ttft_p50_s=float(np.median(ttft)),
+                             tpot_p50_s=float(np.median(tpot)))
 
 
 def _greedy_vs_forward(params, cfg, sinks, device):
@@ -779,50 +806,303 @@ def _check_greedy(label, agree, positions, worst_gap, agree_min, gap_tol):
     return ratio
 
 
+def _steady_decode(eng, cfg, seed, new_tokens=12):
+    """Fill every slot with a 16-token request and step until each one
+    decodes: the steps after this are decode steps of a full batch."""
+    rng = np.random.default_rng(seed)
+    for _ in range(eng.max_slots):
+        eng.submit(rng.integers(0, cfg.vocab_size, 16).tolist(), new_tokens,
+                   lambda t: None)
+    while any(r is None or r.consumed < len(r.prompt) for r in eng._slots):
+        eng.step()
+
+
+class _SyncsAreErrors:
+    """Within a step, everything up to the logits' copy to the host (the
+    staging copy, the replay) runs under ``set_sync_debug_mode("error")``:
+    a sync there raises."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def __enter__(self):
+        eng = self.eng
+        self.saved = (eng._in.send, eng._step_fn)
+
+        def guarded(fn):
+            def call(*a, **kw):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            return call
+        eng._in.send, eng._step_fn = (guarded(f) for f in self.saved)
+
+    def __exit__(self, *exc):
+        self.eng._in.send, self.eng._step_fn = self.saved
+
+
+# the warning each sync makes under set_sync_debug_mode("warn") (setting
+# the mode warns too, in other words)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _step_profile(eng, cfg, seed):
+    """One full-batch decode step, four times over: its wall time, the
+    host's share before the logits' copy (issuing the step), and the
+    device's kernel time from ``torch.profiler``; the syncs a step makes
+    (``set_sync_debug_mode("warn")``); and, for a captured engine, a step
+    whose staging and replay run with syncs as errors."""
+    _steady_decode(eng, cfg, seed)
+    marks = {}
+    fetch = eng._out.fetch
+
+    def marked(t):
+        marks["issued"] = time.perf_counter()
+        return fetch(t)
+    eng._out.fetch = marked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        host_ms = (marks["issued"] - t0) * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            eng.step()
+        device_ms = kernels = 0
+        top = []
+        for evt in prof.key_averages():
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not evt.is_user_annotation):
+                ms = evt.self_device_time_total / 1e3
+                device_ms += ms
+                kernels += evt.count
+                top.append((ms, evt.key[:60], evt.count))
+    finally:
+        eng._out.fetch = fetch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    if eng.cuda_graphs:
+        with _SyncsAreErrors(eng):
+            eng.step()
+    while eng.step():
+        pass
+    return dict(wall_ms=wall_ms, host_ms=host_ms, device_ms=device_ms,
+                device_events=kernels, syncs=syncs,
+                top_kernels=[dict(kernel=k, ms=m, calls=n)
+                             for m, k, n in sorted(top, reverse=True)[:6]])
+
+
 def phase_serving(cfg, params, card, seed=0, device="cuda", paged=True):
-    """The serving path: 8 requests through the engine in the model's
-    bf16, at 8 slots and max_len 512: the paged engine (16-token blocks,
-    prefix cache: a hit and no leaked block required) or the dense one
-    (``paged=False``: one token a step a slot)."""
+    """The serving path, eager against captured: 8 requests through the
+    engine in the model's bf16, at 8 slots and max_len 512, the paged
+    engine (16-token blocks, prefix cache: a hit and no leaked block
+    required) or the dense one (``paged=False``: one token a step a slot).
+    Each engine, captured (the default) and eager (``cuda_graphs=False``),
+    runs the workload twice; their tokens must be equal, call for call.
+    The captured engine's first call is held against the kernel-backed
+    forward. Then one full-batch decode step of each is profiled (wall,
+    host and device ms, syncs), and a captured step must stage and replay
+    with no sync."""
     label = "serve" if paged else "serve dense"
-    eng = LLMEngine(cfg, params, max_slots=8, max_len=512, block_size=16,
-                    paged=paged, device=device)
-    sinks, wall = _serve(eng, _waves(cfg, seed), NEW_TOKENS)
-    state = eng.kv_state()
-    adm = state["admission"]
-    total = eng.stats["tokens_generated"]
-    blocks = (f"prefix {state['prefix']}; kv_free {state['kv_free']} + nodes "
-              f"{state['prefix']['nodes']} / {state['kv_total']}; " if paged
-              else "")
-    print(f"[{label}] {cfg.n_layers} layers: {len(sinks)} requests, {total} "
-          f"tokens in {wall:.2f} s ({eng.stats['steps']} steps) = "
-          f"{total / wall:.1f} tokens/s; TTFT p50 "
-          f"{adm['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
-          f"{adm['tpot_p50_s'] * 1e3:.1f} ms; {blocks}on {card}", flush=True)
-    if paged and state["prefix"]["hits"] < 1:
-        raise AssertionError(f"no prefix-cache hit: {state['prefix']}")
-    if paged and (state["kv_free"] + state["prefix"]["nodes"]
-                  != state["kv_total"]):
-        raise AssertionError(f"KV blocks leaked: {state}")
-    _check_greedy(f"{label} bf16",
-                  *_greedy_vs_forward(params, cfg, sinks, device),
-                  BF16_AGREE_MIN, BF16_GAP_TOL)
-    return dict(tokens_per_s=total / wall, ttft_p50_s=adm["ttft_p50_s"],
-                tpot_p50_s=adm["tpot_p50_s"], steps=eng.stats["steps"])
+    program = "serve::decode_step_paged" if paged else "serve::decode_step"
+    waves = _waves(cfg, seed)
+    out = {}
+    for graphs in (True, False):
+        kind = "captured" if graphs else "eager"
+        eng = LLMEngine(cfg, params, max_slots=8, max_len=512, block_size=16,
+                        paged=paged, cuda_graphs=graphs, device=device)
+        calls = [_serve(eng, waves, NEW_TOKENS) for _ in range(2)]
+        row = device_plane.registry().program(program)
+        prof = _step_profile(eng, cfg, seed + 1)
+        state = eng.kv_state()
+        total = eng.stats["tokens_generated"]
+        blocks = (f"prefix {state['prefix']}; kv_free {state['kv_free']} + "
+                  f"nodes {state['prefix']['nodes']} / {state['kv_total']}; "
+                  if paged else "")
+        rec = dict(
+            tpot_p50_ms=[c[2]["tpot_p50_s"] * 1e3 for c in calls],
+            ttft_p50_ms=[c[2]["ttft_p50_s"] * 1e3 for c in calls],
+            tokens_per_s=[NEW_TOKENS * len(c[0]) / c[1] for c in calls],
+            flops_per_step=row["cost"]["flops"],
+            flops_per_s=eng.stats.get("flops_per_s"), **prof)
+        on_card = graphs and torch.device(device).type == "cuda"
+        if on_card:
+            rec.update(capture_s=row["compile_s_last"],
+                       graph_pool_bytes=row["memory"]["graph_pool_bytes"],
+                       captures=eng._step_fn.captures)
+        print(f"[{label} {kind}] {cfg.n_layers} layers: {total} tokens; "
+              f"{json.dumps(rec)}; {blocks}on {card}", flush=True)
+        if paged and state["prefix"]["hits"] < 1:
+            raise AssertionError(f"no prefix-cache hit: {state['prefix']}")
+        if paged and (state["kv_free"] + state["prefix"]["nodes"]
+                      != state["kv_total"]):
+            raise AssertionError(f"KV blocks leaked: {state}")
+        if on_card and (rec["captures"] != 1 or rec["syncs"] != 1):
+            raise AssertionError(f"{label} captured: {rec['captures']} "
+                                 f"captures, {rec['syncs']} syncs a step")
+        if graphs:
+            _check_greedy(f"{label} bf16",
+                          *_greedy_vs_forward(params, cfg, calls[0][0],
+                                              device),
+                          BF16_AGREE_MIN, BF16_GAP_TOL)
+        out[kind] = (rec, [c[0] for c in calls])
+        del eng
+        torch.cuda.empty_cache()
+    for i in range(2):
+        if out["captured"][1][i] != out["eager"][1][i]:
+            raise AssertionError(f"{label}: call {i}: the captured engine's "
+                                 "tokens differ from the eager engine's")
+    print(f"[{label}] captured tokens == eager tokens in both calls",
+          flush=True)
+    return {kind: rec for kind, (rec, _) in out.items()}
 
 
 def phase_greedy_f32(cfg, params, card, seed=0, device="cuda", paged=True):
     """Greedy parity in float32: the same bf16 weights and requests, the
-    engine and the forward computing in float32 (the kernel's f32 path)."""
+    engine and the forward computing in float32 (the kernel's f32 path).
+    Returns the engine's [(prompt, emitted)]."""
     label = "serve f32" if paged else "serve dense f32"
     cfg32 = cfg.replace(dtype="float32")
     eng = LLMEngine(cfg32, params, max_slots=8, max_len=512, block_size=16,
                     paged=paged, device=device)
-    sinks, wall = _serve(eng, _waves(cfg32, seed), NEW_TOKENS)
+    sinks, wall, timing = _serve(eng, _waves(cfg32, seed), NEW_TOKENS)
     print(f"[{label}] {cfg.n_layers} layers: {eng.stats['tokens_generated']} "
-          f"tokens in {wall:.2f} s on {card}", flush=True)
+          f"tokens in {wall:.2f} s (TPOT p50 "
+          f"{timing['tpot_p50_s'] * 1e3:.1f} ms) on {card}", flush=True)
     _check_greedy(label, *_greedy_vs_forward(params, cfg32, sinks, device),
                   F32_AGREE_MIN, F32_GAP_TOL)
+    return sinks
+
+
+def _draft_of(cfg, params, n_layers):
+    """A draft model cut from the target: its first ``n_layers`` layers and
+    its embedding, final norm and head (views, no copy), so the vocabulary
+    is the target's."""
+    draft = {k: v for k, v in params.items() if k != "layers"}
+    draft["layers"] = {k: v[:n_layers] for k, v in params["layers"].items()}
+    return cfg.replace(n_layers=n_layers), draft
+
+
+def phase_speculate(cfg, params, card, plain_sinks, seed=0, device="cuda"):
+    """Speculative decoding in float32 on the 8 requests of the serving
+    phase, with the ngram drafter and with a draft model of the target's
+    first 4 layers: the tokens must equal the plain paged engine's
+    (``plain_sinks``, from ``phase_greedy_f32``), token for token.
+    Acceptance, tokens a round and TPOT p50 are reported, not gated."""
+    cfg32 = cfg.replace(dtype="float32")
+    draft_cfg, draft_params = _draft_of(cfg32, params, 4)
+    out = {}
+    for drafter, kw in (("ngram", {}),
+                        ("model", dict(draft_model=draft_cfg,
+                                       draft_params=draft_params))):
+        eng = SpeculativeLLMEngine(cfg32, params, drafter=drafter,
+                                   max_slots=8, max_len=512, block_size=16,
+                                   device=device, **kw)
+        sinks, wall, timing = _serve(eng, _waves(cfg32, seed), NEW_TOKENS)
+        st = eng.kv_state()["spec"]
+        rounds = max(st["spec_rounds"], 1)
+        rec = dict(acceptance=st["spec_accepted"] / max(st["spec_proposed"],
+                                                        1),
+                   tokens_per_round=(st["spec_accepted"] + rounds) / rounds,
+                   tpot_p50_ms=timing["tpot_p50_s"] * 1e3,
+                   tokens_per_s=NEW_TOKENS * len(sinks) / wall,
+                   steps=eng.stats["steps"], **st)
+        print(f"[speculate {drafter}] {cfg.n_layers} layers f32 (draft: "
+              f"{draft_cfg.n_layers if drafter == 'model' else 0} layers): "
+              f"{json.dumps(rec)} on {card}", flush=True)
+        if sinks != plain_sinks:
+            bad = sum(a != b for a, b in zip(sinks, plain_sinks))
+            raise AssertionError(f"speculate {drafter}: {bad} of "
+                                 f"{len(sinks)} requests differ from the "
+                                 "plain engine's tokens")
+        out[drafter] = rec
+        del eng
+    print("[speculate] both drafters token-exact against the plain engine",
+          flush=True)
+    return out
+
+
+def _pow2(n):
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def phase_export_adopt(cfg, params, card, seed=0, device="cuda"):
+    """Disaggregated serving on two engines, float32: the first wave's 4
+    requests are prefilled on a prefill-only engine, their KV exported
+    (``KVExport``) and adopted by a decode engine; the tokens must equal
+    the colocated engine's, with no block leaked on either pool. Times the
+    gather and scatter programs' replays (CUDA events)."""
+    cfg32 = cfg.replace(dtype="float32")
+    prompts = _waves(cfg32, seed)[0]
+    kw = dict(max_slots=8, max_len=512, block_size=16, device=device)
+
+    def drain(eng):
+        while eng.step():
+            pass
+
+    colocated, exports, adopted = [], [], []
+    eng = LLMEngine(cfg32, params, **kw)
+    for p in prompts:
+        colocated.append([])
+        eng.submit(p, NEW_TOKENS, colocated[-1].append)
+    drain(eng)
+    del eng
+    P = LLMEngine(cfg32, params, role="prefill", **kw)
+    D = LLMEngine(cfg32, params, role="decode", **kw)
+    t0 = time.perf_counter()
+    for p in prompts:
+        exports.append([])
+        P.submit(p, NEW_TOKENS, exports[-1].append, prefill_only=True)
+    drain(P)
+    t1 = time.perf_counter()
+    exports = [e[0] for e in exports]
+    for p, e in zip(prompts, exports):
+        adopted.append([])
+        D.adopt(p, e.kv, e.token, NEW_TOKENS, adopted[-1].append)
+    drain(D)
+    t2 = time.perf_counter()
+    for eng in (P, D):
+        st = eng.kv_state()
+        if st["kv_free"] + st["prefix"]["nodes"] != st["kv_total"]:
+            raise AssertionError(f"{st['role']} engine leaked KV blocks: "
+                                 f"{st}")
+    if adopted != colocated:
+        bad = sum(a != b for a, b in zip(adopted, colocated))
+        raise AssertionError(f"export/adopt: {bad} of {len(prompts)} "
+                             "requests differ from the colocated engine")
+    # the programs' replay times at the buckets this run captured: the
+    # largest export's, and the one scatter of the 4 adoptions
+    captures = dict(gather=P._gather_fn.captures,
+                    scatter=D._scatter_fn.captures)
+    nb = [P.pool.blocks_for_tokens(len(p)) for p in prompts]
+    g_ids = torch.arange(min(_pow2(max(nb)), P._tbl_width), device=device)
+    s_ids = torch.arange(_pow2(sum(nb)), device=device)
+    zeros = {k: torch.zeros_like(D._cache[k][:, :len(s_ids)])
+             for k in ("k", "v")}
+    rec = dict(
+        export_s=t1 - t0, adopt_and_decode_s=t2 - t1,
+        export_bytes=sum(e.nbytes for e in exports),
+        gather_blocks=len(g_ids), scatter_blocks=len(s_ids),
+        gather_ms=_median_ms(lambda: P._gather_fn(P._cache, g_ids)),
+        scatter_ms=_median_ms(lambda: D._scatter_fn(D._cache, s_ids, zeros)),
+        copy_ms=_median_ms(lambda: D._copy_fn(D._cache,
+                                              D._block_pair(0, 1))),
+        captures=captures,
+        exported=P.stats["exported"], adopted=D.stats["adopted"])
+    print(f"[export/adopt] {cfg.n_layers} layers f32, {len(prompts)} "
+          f"requests: tokens == colocated, no leaked block; "
+          f"{json.dumps(rec)} on {card}", flush=True)
+    return rec
 
 
 def _cache_bytes(cfg, b, total, rolling):
@@ -1148,7 +1428,11 @@ def main():
     _phase("small train d256", phase_small_train, head_dim=256)
     cfg, params, launches = _phase("llama3_8b forward", phase_forward, card)
     _phase("llama3_8b serving", phase_serving, cfg, params, card)
-    _phase("llama3_8b serving f32", phase_greedy_f32, cfg, params, card)
+    plain_f32 = _phase("llama3_8b serving f32", phase_greedy_f32, cfg,
+                       params, card)
+    _phase("llama3_8b speculate", phase_speculate, cfg, params, card,
+           plain_f32)
+    _phase("llama3_8b export/adopt", phase_export_adopt, cfg, params, card)
     del params
     torch.cuda.empty_cache()
     counts = _phase("llama_1b training", phase_train, card)

@@ -22,6 +22,15 @@ _REGISTRY: Dict[str, Knob] = {
     "llm_block_size": Knob(int, 16, "tokens per paged-KV block"),
     "llm_prefill_chunk": Knob(int, 8, "prompt tokens consumed per engine step "
                               "during chunked prefill"),
+    "spec_k": Knob(int, 4, "draft tokens proposed per speculative-decoding "
+                   "round (the target verifies k+1 positions in one step)"),
+    "spec_accept_floor": Knob(float, 0.2, "per-request acceptance-EWMA "
+                              "floor: a request whose draft acceptance "
+                              "falls below it after the warmup rounds "
+                              "decodes plainly from then on"),
+    "device_plane": Knob(str, "1", "0 turns off the device plane's "
+                         "accounting (the registry rows); programs are "
+                         "captured and replayed either way"),
 }
 
 

@@ -1,7 +1,7 @@
 """Decoder-only transformer: plain functions over a parameter dict (twin of
 ``ray_tpu/models/transformer.py``): init, the forward, the loss, the dense
 decode steps (full-length or ring cache) with ``generate``, and the paged
-decode step.
+decode and verify steps with the KV-block copy, gather and scatter.
 
 - Parameters are a dict of tensors with the JAX package's keys and layouts,
   layers stacked on a leading dim (``wq`` [L, d, h, hd], ``wo`` [L, h, hd, d],
@@ -15,6 +15,9 @@ decode step.
   The decode steps attend with a dense softmax over their cache (the paged
   one over a gathered context), as the reference does; they update the
   cache in place, where the reference returns a new one.
+- The serving steps (``decode_step_multi``, the paged steps, the block
+  copy, gather and scatter) are static in shape and never wait for the
+  device, so the engine can capture each as a CUDA graph.
 - Training differentiates :func:`loss_and_metrics` with autograd. Under
   ``config.remat`` each layer runs under ``torch.utils.checkpoint`` and is
   recomputed in the backward pass (the flash forward kernel runs twice per
@@ -529,11 +532,13 @@ def decode_step_multi(params: Params, cache: Params, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, Params]:
     """One decode step for B independent sequences at per-slot positions
     ``cache["pos"]`` [B]: tokens [B, 1] -> (logits [B, V] f32 of each row's
-    new token, cache), the cache updated in place. Rows where ``active`` is
-    False (parked slots) keep their cache and position: the new keys are
-    written to the active rows only (pass ``active`` on the CPU to keep the
-    step free of a device-to-host sync). Per-layer windows as in
-    :func:`decode_step`."""
+    new token, cache), the cache (``pos`` included) updated in place. Rows
+    where ``active`` is False (parked slots) keep their cache and position.
+    Static in shape, as the reference's ``where`` form is: every row
+    writes its slot at ``pos``, a parked row (or one past the cache, whose
+    write the reference drops) the value the slot already holds, so the
+    step never waits for the device and can be captured in a CUDA graph.
+    Per-layer windows as in :func:`decode_step`."""
     c = config
     _check_supported(c)
     dt = torch_dtype(c.dtype)
@@ -543,10 +548,11 @@ def decode_step_multi(params: Params, cache: Params, tokens: torch.Tensor,
     pos = cache["pos"]
     cache_len = cache["k"].shape[2]
     if active is None:
-        active = torch.ones(b, dtype=torch.bool)
-    active = torch.as_tensor(active, dtype=torch.bool)
-    rows = active.nonzero()[:, 0].to(dev)
-    at = pos[rows]
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+    active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+    rows = torch.arange(b, device=dev)
+    at = pos.clamp(max=cache_len - 1)
+    keep = (active & (pos < cache_len))[:, None, None]
     x, (cos, sin) = _embed_at(params, tokens[:, :1], pos[:, None], c)
     kpos = torch.arange(cache_len, device=dev)[None, :]
     scale = c.hdim ** -0.5
@@ -557,8 +563,8 @@ def decode_step_multi(params: Params, cache: Params, tokens: torch.Tensor,
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
         kc, vc = cache["k"][i], cache["v"][i]
-        kc[rows, at] = k[rows, 0].to(kc.dtype)
-        vc[rows, at] = v[rows, 0].to(vc.dtype)
+        kc[rows, at] = torch.where(keep, k[:, 0].to(kc.dtype), kc[rows, at])
+        vc[rows, at] = torch.where(keep, v[:, 0].to(vc.dtype), vc[rows, at])
         kx = _repeat_kv(kc, c.n_heads)
         vx = _repeat_kv(vc, c.n_heads)
         s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kx.float()) * scale
@@ -570,7 +576,7 @@ def decode_step_multi(params: Params, cache: Params, tokens: torch.Tensor,
         x = x + _out_proj(o, lp, dt)
         x = _decode_mlp(x, lp, c, dt)
     x = _norm(x, params["final_norm"], params.get("final_norm_b"), c)
-    cache["pos"] = pos + active.to(dev, torch.int64)
+    pos.add_(active.to(pos.dtype))
     return _logits(x[:, 0], params, c), cache
 
 
@@ -629,12 +635,59 @@ def init_cache_paged(config: TransformerConfig, num_blocks: int,
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
-def copy_kv_block(cache: Params, src: int, dst: int) -> Params:
+def _block_ids(ids, device) -> torch.Tensor:
+    return torch.as_tensor(ids, device=device).long().reshape(-1)
+
+
+def copy_kv_block(cache: Params, src, dst) -> Params:
     """Copy one physical block (all layers) — the device half of
-    copy-on-write. In place: torch tensors are mutable, so no new pool is
-    made (the JAX version returns an updated copy and donates the old)."""
-    cache["k"][:, dst] = cache["k"][:, src]
-    cache["v"][:, dst] = cache["v"][:, src]
+    copy-on-write. ``src`` and ``dst`` are ints or one-element int tensors
+    on the cache's device (tensors keep a captured copy free of its
+    operands). In place: torch tensors are mutable, so no new pool is made
+    (the JAX version returns an updated copy and donates the old)."""
+    dev = cache["k"].device
+    src, dst = _block_ids(src, dev), _block_ids(dst, dev)
+    for name in ("k", "v"):
+        cache[name].index_copy_(1, dst, cache[name].index_select(1, src))
+    return cache
+
+
+def gather_kv_blocks(cache: Params, block_ids) -> Params:
+    """Gather a request's physical blocks out of the paged pool ([L, n,
+    bs, kvh, hd] per tensor, contiguous) — the device half of KV-block
+    export for disaggregated prefill / decode."""
+    ids = _block_ids(block_ids, cache["k"].device)
+    return {"k": cache["k"].index_select(1, ids),
+            "v": cache["v"].index_select(1, ids)}
+
+
+def _first_valid(valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(index of each row's donor: itself where ``valid``, else the first
+    valid row; whether any row is valid) — without leaving the device."""
+    first = valid.long().argmax()
+    rows = torch.arange(valid.shape[0], device=valid.device)
+    return torch.where(valid, rows, first), valid.any()
+
+
+def scatter_kv_blocks(cache: Params, block_ids, kv: Params) -> Params:
+    """Scatter a shipped block batch ([L, n, bs, kvh, hd] per tensor, as
+    :func:`gather_kv_blocks` gives it) into this pool's blocks
+    ``block_ids``, in place — the device half of KV-block adoption. Ids
+    outside the pool write nothing, as the reference's dropped scatter: the
+    engine pads a batch to a power-of-two bucket with the id
+    ``num_blocks``. Static in shape: a padded entry rewrites the first real
+    entry's block with that entry's payload (with no real entry at all,
+    block 0 with what it holds), so the write never waits for the
+    device."""
+    n = cache["k"].shape[1]
+    ids = _block_ids(block_ids, cache["k"].device)
+    src, any_valid = _first_valid((ids >= 0) & (ids < n))
+    dest = torch.where(any_valid, ids[src], 0)
+    for name in ("k", "v"):
+        pool = cache[name]
+        new = kv[name].to(pool.device, pool.dtype).index_select(1, src)
+        pool.index_copy_(1, dest, torch.where(any_valid, new,
+                                              pool.index_select(1, dest)))
     return cache
 
 
@@ -651,15 +704,31 @@ def decode_step_paged(params: Params, cache: Params, tokens: torch.Tensor,
     (logical position p of request b lives in block ``block_tables[b, p //
     bs]`` at offset ``p % bs``; unused entries must hold a valid id — they
     are masked, never written). pos: [B] tokens already cached; nvalid: [B]
-    how many of this step's C tokens are real. Only valid rows write, so
-    padding touches nothing. Returns (logits [B, V] of each row's LAST
-    VALID token, cache) — the cache is updated in place."""
+    how many of this step's C tokens are real. Only valid rows change the
+    cache, so padding touches nothing. Returns (logits [B, V] of each row's
+    LAST VALID token, cache) — the cache is updated in place."""
     return _step_paged_impl(params, cache, tokens, block_tables, pos, nvalid,
-                            config, active)
+                            config, active, all_logits=False)
+
+
+def verify_step_paged(params: Params, cache: Params, tokens: torch.Tensor,
+                      block_tables: torch.Tensor, pos: torch.Tensor,
+                      nvalid: torch.Tensor, config: TransformerConfig,
+                      active: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Params]:
+    """The speculative-decoding verify twin of :func:`decode_step_paged`:
+    the same cache semantics and masking, but logits [B, C, V] f32 for
+    EVERY fed position (``logits_softcap`` applied). Feeding ``[last, d1..
+    dk]`` verifies a k-token draft in one call: logits[:, i] is the
+    target's distribution after input i. Logits at invalid positions are
+    garbage; the caller masks them with ``nvalid``."""
+    return _step_paged_impl(params, cache, tokens, block_tables, pos, nvalid,
+                            config, active, all_logits=True)
 
 
 def _step_paged_impl(params, cache, tokens, block_tables, pos, nvalid,
-                     config: TransformerConfig, active=None):
+                     config: TransformerConfig, active=None, *,
+                     all_logits: bool = False):
     c = config
     _check_supported(c)
     dt = torch_dtype(c.dtype)
@@ -676,11 +745,17 @@ def _step_paged_impl(params, cache, tokens, block_tables, pos, nvalid,
     steps = torch.arange(t, device=dev)
     positions = pos[:, None] + steps[None, :]                        # [B, C]
     valid = ((steps[None, :] < nvalid[:, None]) & active[:, None]).reshape(-1)
-    # physical row of each new token; lookups clipped to the table width.
-    # Only valid rows are written: the reference scatters invalid rows out
-    # of bounds for XLA to drop, torch would fault, so select them instead.
+    # physical row of each new token; lookups clipped to the table width
     blk = torch.gather(block_tables, 1, (positions // bs).clamp(0, m - 1))
-    dest = (blk * bs + positions % bs).reshape(-1)[valid]
+    dest = (blk * bs + positions % bs).reshape(-1)
+    # The reference scatters invalid rows out of bounds for XLA to drop;
+    # torch would fault, and selecting the valid rows would wait for the
+    # device. So every row writes, in a shape fixed by [B, C]: an invalid
+    # row takes the first valid row's destination and value (the same
+    # bytes to the same place), and with no valid row at all every row
+    # rewrites row dest[0] with what it holds.
+    src, any_valid = _first_valid(valid)
+    dest = dest[src]
     # gather map: logical position j of request b = physical row gidx[b, j]
     gidx = (block_tables[:, :, None] * bs
             + torch.arange(bs, device=dev)[None, None, :]).reshape(b, m * bs)
@@ -707,8 +782,9 @@ def _step_paged_impl(params, cache, tokens, block_tables, pos, nvalid,
         # chunk's own earlier keys. The views alias the pool: in place.
         kcf = cache["k"][i].view(n_blocks * bs, *cache["k"].shape[3:])
         vcf = cache["v"][i].view(n_blocks * bs, *cache["v"].shape[3:])
-        kcf[dest] = k.reshape(b * t, *k.shape[2:])[valid].to(kcf.dtype)
-        vcf[dest] = v.reshape(b * t, *v.shape[2:])[valid].to(vcf.dtype)
+        for new, flat in ((k, kcf), (v, vcf)):
+            rows = new.reshape(b * t, *new.shape[2:]).to(flat.dtype)[src]
+            flat[dest] = torch.where(any_valid, rows, flat[dest])
         kx = _repeat_kv(kcf[gidx], c.n_heads)                   # [B, Mbs, H, hd]
         vx = _repeat_kv(vcf[gidx], c.n_heads)
         s = torch.einsum("bchd,bkhd->bhck", q.float(), kx.float()) * scale
@@ -720,6 +796,9 @@ def _step_paged_impl(params, cache, tokens, block_tables, pos, nvalid,
         x = x + _out_proj(o, lp, dt)
         x = _decode_mlp(x, lp, c, dt)
     x = _norm(x, params["final_norm"], params.get("final_norm_b"), c)
+    if all_logits:
+        # verify: the accept check needs a distribution at every position
+        return _logits(x, params, c), cache
     # only each row's last valid position needs logits: project B rows,
     # not B*C
     last = (nvalid - 1).clamp(0, t - 1)

@@ -1,6 +1,8 @@
 """The port's kernels on the card: the Hopper flash-attention forward and
 backward (dQ, dK/dV), at head dims 64, 128 and 256, against their plain
-PyTorch versions, and the CUDA autograd path running them.
+PyTorch versions, and the CUDA autograd path running them. The serving
+engine's programs captured as CUDA graphs (``util.device_plane``) against
+the same programs run eagerly.
 
 Marked ``cuda``; each test skips (with the reason) where no GPU is
 present. This file imports no JAX, so on a GPU machine without JAX it runs
@@ -9,10 +11,14 @@ alone (the repo's conftest imports JAX)::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch import models
 from ray_tpu_torch.ops import attention, flash_cuda
+from ray_tpu_torch.serve import LLMEngine
+from ray_tpu_torch.util import device_plane
 
 pytestmark = pytest.mark.cuda
 
@@ -450,3 +456,216 @@ def test_cuda_flash_attention_backward_runs_kernels_d256(cuda):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# captured serving programs (CUDA graphs) against eager, float32
+# ---------------------------------------------------------------------------
+
+GRAPH_TOL = 1e-5   # of max |eager|: the same kernels, replayed
+
+
+def _f32_model(cuda, name, seed=0):
+    cfg = models.get_config(name).replace(dtype="float32",
+                                          param_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return cfg, models.init_params(gen, cfg, device=cuda)
+
+
+def _close(got, want):
+    """(within GRAPH_TOL of max |want|, bitwise equal)"""
+    gap = (got - want).abs().max().item()
+    return gap <= GRAPH_TOL * want.abs().max().item(), gap == 0.0
+
+
+def _paged_feed(cfg, rng, steps=4, b=3, c=4, n_blocks=12, bs=4):
+    """A prefill chunk, then decode steps, for b rows (the last one parked)
+    over a pool of n_blocks; every step's inputs have the same shapes."""
+    tables = rng.permutation(n_blocks)[:b * 3].reshape(b, 3)
+    feed, pos = [], np.zeros(b, np.int64)
+    for i in range(steps):
+        nvalid = np.full(b, c if i == 0 else 1)
+        tokens = rng.integers(0, cfg.vocab_size, (b, c))
+        active = np.array([True] * (b - 1) + [False])
+        feed.append([torch.from_numpy(a.astype(np.int64)) for a in
+                     (tokens, tables, pos.copy(), nvalid)]
+                    + [torch.from_numpy(active)])
+        pos = pos + nvalid * active
+    return feed
+
+
+@pytest.mark.parametrize("step,name", [
+    ("decode_step_paged", "llama-debug"), ("decode_step_paged", "gemma-debug"),
+    ("verify_step_paged", "llama-debug"), ("verify_step_paged", "gemma-debug"),
+])
+def test_captured_paged_step_matches_eager(cuda, step, name):
+    """A paged step captured once and replayed over prefill and decode
+    steps gives the eager step's logits and cache; its replays make no
+    sync (``set_sync_debug_mode("error")``)."""
+    cfg, params = _f32_model(cuda, name)
+    fn = getattr(models, step)
+    cache_e = models.init_cache_paged(cfg, 12, 4, device=cuda)
+    cache_c = {k: v.clone() for k, v in cache_e.items()}
+    prog = device_plane.registered_graph(
+        lambda p, c, *a: fn(p, c, *a[:4], cfg, active=a[4])[0],
+        name=f"test::{step}::{name}", fixed_argnums=(0, 1))
+    bitwise = True
+    for i, inputs in enumerate(_paged_feed(cfg, np.random.default_rng(0))):
+        dev_in = [t.to(cuda) for t in inputs]
+        want = fn(params, cache_e, *dev_in[:4], cfg, active=dev_in[4])[0]
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = prog(params, cache_c, *dev_in)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rows = [0, 1]       # the parked row's logits are garbage in both
+        ok, same = _close(got[rows], want[rows])
+        assert ok, f"step {i}: logits off by more than {GRAPH_TOL}"
+        bitwise &= same
+        for key in ("k", "v"):
+            ok, same = _close(cache_c[key], cache_e[key])
+            assert ok, f"step {i}: cache {key}"
+            bitwise &= same
+    assert prog.captures == 1
+    row = device_plane.registry().program(f"test::{step}::{name}")
+    assert row["compiles"] == 1 and row["calls"] == 4
+    assert row["memory"]["graph_pool_bytes"] > 0 and row["cost"]["flops"] > 0
+    print(f"{step} {name}: captured == eager bitwise: {bitwise}")
+
+
+def test_captured_dense_step_matches_eager(cuda):
+    """decode_step_multi captured with its cache (pos included) fixed, its
+    tokens and active flags copied in: replays match eager, a parked slot
+    keeps its position, and the replays make no sync."""
+    cfg, params = _f32_model(cuda, "gemma-debug")
+    cache_e = models.init_cache_multi(cfg, 3, 24, device=cuda)
+    cache_c = {k: v.clone() for k, v in cache_e.items()}
+    prog = device_plane.registered_graph(
+        lambda p, c, t, a: models.decode_step_multi(p, c, t, cfg,
+                                                    active=a)[0],
+        name="test::decode_step", fixed_argnums=(0, 1))
+    rng = np.random.default_rng(1)
+    active = torch.tensor([True, False, True], device=cuda)
+    for i in range(6):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))).to(
+            cuda)
+        want = models.decode_step_multi(params, cache_e, toks, cfg,
+                                        active=active)[0]
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = prog(params, cache_c, toks, active)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert _close(got, want)[0], f"step {i}"
+        for key in ("k", "v", "pos"):
+            assert _close(cache_c[key].float(), cache_e[key].float())[0]
+    assert cache_c["pos"].tolist() == [6, 0, 6]
+    assert prog.captures == 1
+
+
+def _engine_tokens(eng, prompts, new=6):
+    sinks = [[] for _ in prompts]
+    for p, s in zip(prompts, sinks):
+        eng.submit(p, new, s.append)
+    while eng.step():
+        pass
+    return sinks
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_captured_engine_matches_eager_and_recaptures_after_set_params(
+        cuda, paged):
+    """The engine's captured step against the same engine run eagerly
+    (``cuda_graphs=False``): equal tokens; after ``set_params`` the step
+    is captured again and follows the new weights (no prefix cache: its
+    blocks hold the old weights' KV)."""
+    cfg, params = _f32_model(cuda, "llama-debug", seed=0)
+    _, other = _f32_model(cuda, "llama-debug", seed=1)
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7], [4] * 11]
+    kw = dict(max_slots=3, max_len=32, block_size=4, prefill_chunk=4,
+              paged=paged, prefix_cache=False, device=cuda)
+    cap = LLMEngine(cfg, params, **kw)
+    eag = LLMEngine(cfg, params, cuda_graphs=False, **kw)
+    assert _engine_tokens(cap, prompts) == _engine_tokens(eag, prompts)
+    assert cap._step_fn.captures == 1 and eag._step_fn.captures == 0
+    for eng in (cap, eag):
+        eng.set_params(other)
+    assert cap._step_fn.captures == 0           # dropped with the params
+    got = _engine_tokens(cap, prompts)
+    assert got == _engine_tokens(eag, prompts)
+    assert cap._step_fn.captures == 1
+    fresh = LLMEngine(cfg, other, cuda_graphs=False, **kw)
+    assert got == _engine_tokens(fresh, prompts)
+
+
+def test_speculative_engine_self_draft_accepts_everything(cuda):
+    """Speculation on the card with its verify and draft programs
+    captured: a draft model that is the target proposes the target's own
+    greedy tokens, so every proposal is accepted, and the tokens equal the
+    plain engine's (which, with no proposal landing, the smoke's random
+    drafts cannot show)."""
+    from ray_tpu_torch.serve import SpeculativeLLMEngine
+
+    cfg, params = _f32_model(cuda, "llama-debug")
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7], [4] * 11]
+    kw = dict(max_slots=3, max_len=48, block_size=4, prefill_chunk=4,
+              device=cuda)
+    want = _engine_tokens(LLMEngine(cfg, params, **kw), prompts, new=16)
+    spec = SpeculativeLLMEngine(cfg, params, drafter="model",
+                                draft_params=params, spec_k=3, **kw)
+    assert _engine_tokens(spec, prompts, new=16) == want
+    st = spec.kv_state()["spec"]
+    assert st["spec_accepted"] == st["spec_proposed"] > 0
+    assert spec._verify_fn.captures == 1
+    assert spec._draft._step.captures == 1
+
+
+def test_second_signature_is_a_second_capture(cuda):
+    """Another batch shape is a new capture and a retrace on the program's
+    row, its signature diff kept; the first graph still replays."""
+    cfg, params = _f32_model(cuda, "llama-debug")
+    cache = models.init_cache_paged(cfg, 12, 4, device=cuda)
+    name = "test::two_signatures"
+    prog = device_plane.registered_graph(
+        lambda p, c, *a: models.decode_step_paged(p, c, *a, cfg)[0],
+        name=name, fixed_argnums=(0, 1))
+
+    def inputs(b):
+        return [torch.zeros(b, 4, dtype=torch.int64, device=cuda),
+                torch.arange(b * 3, device=cuda).reshape(b, 3),
+                torch.zeros(b, dtype=torch.int64, device=cuda),
+                torch.ones(b, dtype=torch.int64, device=cuda)]
+
+    for b in (2, 3, 2):
+        assert prog(params, cache, *inputs(b)).shape == (b, cfg.vocab_size)
+    assert prog.captures == 2
+    row = device_plane.registry().program(name)
+    assert row["compiles"] == 2 and row["retraces"] == 1 and row["calls"] == 3
+    assert row["diffs"][0]["changed"]["args[2]"] == {
+        "was": "int64[2,4]", "now": "int64[3,4]"}
+
+
+def test_replay_refuses_a_moved_fixed_argument(cuda):
+    prog = device_plane.registered_graph(lambda w, x: w @ x,
+                                         name="test::fixed",
+                                         fixed_argnums=(0,))
+    w, x = torch.eye(8, device=cuda), torch.ones(8, 8, device=cuda)
+    assert torch.equal(prog(w, x), x)
+    assert torch.equal(prog(w, x * 2), x * 2)     # x is copied in
+    with pytest.raises(RuntimeError, match="reset"):
+        prog(w.clone(), x)
+    prog.reset()
+    assert torch.equal(prog(w.clone() * 3, x), x * 3)
+
+
+def test_failed_capture_raises_without_a_fallback(cuda):
+    """A program that waits for the device cannot be captured: the call
+    raises (last in this file: a failed capture may leave the context
+    unusable for work that follows)."""
+    prog = device_plane.registered_graph(lambda x: x[x > 0].sum(),
+                                         name="test::syncing")
+    with pytest.raises(RuntimeError):
+        prog(torch.ones(16, device=cuda))
+    assert prog.captures == 0
