@@ -44,7 +44,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (acceptance, tokens a round, TPOT p50 reported); and a prefill-only
    engine's KV exports adopted by a decode engine, token-exact against
    the colocated engine with no leaked block (the gather, scatter and
-   copy programs' replays timed);
+   copy programs' replays timed); then the same 8 requests through the
+   framework: a driver process of its own (``--serve-runtime-driver``)
+   that never touches the card runs ``ray_tpu_torch.init()`` (the object
+   store native), deploys ``LLMDeployment`` on a ``num_gpus=1`` replica
+   that opts in to the card, sends the 8 one at a time (token-exact
+   against this process's engine) and then both waves at once through the
+   handle and the HTTP proxy's ``?stream=1`` (the bf16 bar; TTFT, TPOT
+   and tokens/s beside this process's engine under the same requests),
+   and has a worker actor repeat the Llama-3-8B forward (bitwise equal,
+   through kernel 1);
 7. training: one float32 train step of a small gemma-style config on the
    card against the same step on the CPU (head dims 64 and 256), then
    ``TrainLoopHelper`` at Llama-1B width and depth (bf16 compute, f32
@@ -70,11 +79,16 @@ line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import hashlib
+import http.client
 import json
 import os
 import re
 import shutil
 import subprocess
+import sys
+import tempfile
+import threading
 import time
 import warnings
 
@@ -686,11 +700,11 @@ def _bf16_weights(name, seed):
     return cfg, params, gen
 
 
-def phase_forward(card, name="llama3-8b", b=2, l=2048, seed=0):
-    """A preset at full width and depth, bf16 weights from a seeded
-    generator, through the flash-attention kernel: llama3_8b at B=2,
-    L=2048; gemma2_9b (head dim 256, windows 4096 / global, softcaps) at
-    B=1, L=8192, where layer 0's 4096 window masks."""
+def _forward_logits(name, b, l, seed):
+    """A preset's bf16 weights drawn on the card from a seeded generator,
+    the tokens drawn next from the same generator, and the forward's
+    logits, counting kernel launches (the forward phase, and the worker
+    actor that must reproduce it bitwise)."""
     cfg, params, gen = _bf16_weights(name, seed)
     toks = torch.randint(0, cfg.vocab_size, (b, l), generator=gen,
                          device="cuda")
@@ -701,8 +715,34 @@ def phase_forward(card, name="llama3-8b", b=2, l=2048, seed=0):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = flash_cuda.launches
+    return cfg, params, toks, logits, first_s, launches
+
+
+def _sha256(t):
+    """The sha256 of a tensor's bytes."""
+    flat = t.contiguous().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(flat.cpu().numpy()).hexdigest()
+
+
+def _logits_ref(logits):
+    """What a forward is held to bitwise: the sha256 of its logits' bytes
+    and its last position's logits (on the host)."""
+    return dict(sha256=_sha256(logits), last=logits[:, -1].cpu())
+
+
+def phase_forward(card, name="llama3-8b", b=2, l=2048, seed=0):
+    """A preset at full width and depth, bf16 weights from a seeded
+    generator, through the flash-attention kernel: llama3_8b at B=2,
+    L=2048; gemma2_9b (head dim 256, windows 4096 / global, softcaps) at
+    B=1, L=8192, where layer 0's 4096 window masks. Returns the config,
+    the params, the kernel launches and what a repeat of the forward in
+    another process is held to (``_logits_ref``)."""
+    cfg, params, toks, logits, first_s, launches = _forward_logits(
+        name, b, l, seed)
+    with torch.inference_mode():
         finite = bool(torch.isfinite(logits).all())
         shape = tuple(logits.shape)
+        ref = _logits_ref(logits)
         del logits
         fwd_ms = _median_ms(lambda: models.forward(params, toks, cfg),
                             iters=3, warmup=1)
@@ -716,7 +756,7 @@ def phase_forward(card, name="llama3-8b", b=2, l=2048, seed=0):
     if launches != cfg.n_layers:
         raise AssertionError(f"the forward launched the kernel {launches} "
                              f"times, expected {cfg.n_layers}")
-    return cfg, params, launches
+    return cfg, params, launches, ref
 
 
 def _waves(cfg, seed):
@@ -1105,6 +1145,333 @@ def phase_export_adopt(cfg, params, card, seed=0, device="cuda"):
     return rec
 
 
+# A worker sees the card only where it opts in: beside num_gpus=1 it sets
+# CUDA_VISIBLE_DEVICES itself (the runtime gives every worker an empty one)
+ON_CARD = {"num_gpus": 1,
+           "runtime_env": {"env_vars": {"CUDA_VISIBLE_DEVICES": "0"}}}
+SERVE_DEPLOYMENT = "llama3_8b"
+
+
+class ForwardOnCard:
+    """A worker actor (``num_gpus=1`` and the opt-in) that repeats the
+    forward phase's llama3_8b forward in its own process, through kernel 1
+    built from this checkout: returns what the driver's forward is held to
+    bitwise (the last position's logits leave the card as a CUDA tensor
+    and come back through the object store on the CPU)."""
+
+    def run(self, name, b, l, seed):
+        # imported here: the class travels by value, and a global ``torch``
+        # with its backends modules in the code would go with it
+        import torch
+
+        before = torch.cuda.is_initialized()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg, params, toks, logits, first_s, launches = _forward_logits(
+            name, b, l, seed)
+        with torch.inference_mode():
+            sha, last = _sha256(logits), logits[:, -1].clone()
+        return dict(sha256=sha, last=last, launches=launches,
+                    n_layers=cfg.n_layers, first_s=first_s,
+                    cuda_initialized_before=before,
+                    device=torch.cuda.get_device_name(0),
+                    pid=os.getpid())
+
+
+def _stream_stats(stamps, n_tokens):
+    """TTFT / TPOT p50 (ms) and tokens/s from each stream's submit time and
+    its tokens' arrival times."""
+    ttft = [ts[0] - t0 for t0, ts in stamps]
+    tpot = [b - a for _, ts in stamps for a, b in zip(ts, ts[1:])]
+    wall = max(ts[-1] for _, ts in stamps) - min(t0 for t0, _ in stamps)
+    return dict(ttft_p50_ms=float(np.median(ttft)) * 1e3,
+                tpot_p50_ms=float(np.median(tpot)) * 1e3,
+                tokens_per_s=n_tokens / wall)
+
+
+def _http_stream(port, route, prompt, new_tokens):
+    """One ``?stream=1`` request to the proxy: the tokens and their arrival
+    times (one JSON line per token, read as it comes)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", f"/{route}?stream=1", body=json.dumps(
+            {"prompt_tokens": prompt, "max_new_tokens": new_tokens}))
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"proxy answered {resp.status}: "
+                                 f"{resp.read()[:200]!r}")
+        toks, ts = [], []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.strip():
+                ts.append(time.perf_counter())
+                toks.append(json.loads(line)["result"])
+        return toks, ts
+    finally:
+        conn.close()
+
+
+def serve_runtime_driver(out_path, seed=0):
+    """The driver of the runtime phase, in a process of its own that never
+    touches the card: ``ray_tpu_torch.init()``, ``LLMDeployment`` on a
+    replica on the card (llama3_8b at full width and depth, bf16 weights
+    drawn there from the seed, paged), the 8 requests one at a time, then
+    both waves concurrently through the handle and the HTTP proxy's
+    ``?stream=1``; then a ``ForwardOnCard`` actor. Writes what it saw to
+    ``out_path`` (``torch.save``) for the checking process."""
+    import ray_tpu_torch
+    from ray_tpu_torch import _native, serve
+    from ray_tpu_torch.serve import LLMDeployment
+    from ray_tpu_torch.util import state
+
+    native = _native.native_status()
+    print(f"[serve runtime] native: {json.dumps(native)}", flush=True)
+    if not (native["store"] and native["pipe"]):
+        raise AssertionError(f"the object store is not native: {native}")
+    t0 = time.perf_counter()
+    ray_tpu_torch.init()
+    init_s = time.perf_counter() - t0
+    res = ray_tpu_torch.available_resources()
+    out = dict(init_s=init_s, resources=res,
+               cuda_after_init=torch.cuda.is_initialized())
+    if out["cuda_after_init"] or res.get("GPU", 0) < 1:
+        raise AssertionError(f"init: CUDA initialised in the driver "
+                             f"{out['cuda_after_init']}, resources {res}")
+
+    @ray_tpu_torch.remote
+    def card_seen_without_opt_in():
+        return (torch.cuda.is_available(), torch.cuda.is_initialized(),
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    out["plain_worker"] = ray_tpu_torch.get(card_seen_without_opt_in.remote())
+    cfg = models.get_config("llama3-8b").replace(param_dtype="bfloat16")
+    waves = _waves(cfg, seed)
+    prompts = waves[0] + waves[1]
+    opts = dict(ON_CARD, max_concurrency=32, num_cpus=0)
+    t0 = time.perf_counter()
+    handle = serve.run(serve.deployment(
+        LLMDeployment, name=SERVE_DEPLOYMENT, ray_actor_options=opts).bind(
+            cfg, max_slots=8, max_len=512, block_size=16, seed=seed),
+        name=SERVE_DEPLOYMENT)
+    # one at a time: the replica's engine sees the requests in the order
+    # the checking process's in-process engine will
+    out["sequential"] = []
+    for i, p in enumerate(prompts):
+        out["sequential"].append(list(handle.options(stream=True).remote(
+            p, NEW_TOKENS)))
+        if i == 0:
+            out["first_request_s"] = time.perf_counter() - t0
+    # both waves, concurrently, through the handle and through HTTP
+    proxy = serve.start_http_proxy(port=0)
+    results = {"handle": [None] * len(prompts), "http": [None] * len(prompts)}
+    stamps = {"handle": [None] * len(prompts), "http": [None] * len(prompts)}
+    errors = []
+
+    def via_handle(i):
+        try:
+            t_sub, toks, ts = time.perf_counter(), [], []
+            for tok in handle.options(stream=True).remote(prompts[i],
+                                                          NEW_TOKENS):
+                ts.append(time.perf_counter())
+                toks.append(tok)
+            results["handle"][i], stamps["handle"][i] = toks, (t_sub, ts)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    def via_http(i):
+        try:
+            t_sub = time.perf_counter()
+            toks, ts = _http_stream(proxy.port, SERVE_DEPLOYMENT, prompts[i],
+                                    NEW_TOKENS)
+            results["http"][i], stamps["http"][i] = toks, (t_sub, ts)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=fn, args=(i,))
+               for i in range(len(prompts)) for fn in (via_handle, via_http)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    out["concurrent_wall_s"] = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"concurrent streams failed: {errors[:3]}")
+    out["concurrent"] = results
+    for route in ("handle", "http"):
+        out[f"{route}_timing"] = _stream_stats(stamps[route],
+                                               NEW_TOKENS * len(prompts))
+    out["all_timing"] = _stream_stats(stamps["handle"] + stamps["http"],
+                                      NEW_TOKENS * 2 * len(prompts))
+    out["stats"] = handle.options(method_name="stats",
+                                  stream=False).remote().result()
+    # the device plane's receiver side: the replica's registry snapshot,
+    # pushed to this driver's DeviceStore on the worker's idle ticks
+    deadline = time.monotonic() + 30
+    report = state.device_report()
+    while (not any(r.get("program") == "serve::decode_step_paged"
+                   for r in report["programs"])
+           and time.monotonic() < deadline):
+        time.sleep(1.0)
+        report = state.device_report()
+    out["device_report"] = dict(
+        totals=report["totals"],
+        programs=sorted({r.get("program") for r in report["programs"]}),
+        processes=[{k: p[k] for k in ("component", "pid", "programs",
+                                      "hbm") if k in p}
+                   for p in report["processes"]])
+    proxy.stop()
+    serve.shutdown()
+    actor = ray_tpu_torch.remote(ForwardOnCard).options(**ON_CARD).remote()
+    out["forward"] = ray_tpu_torch.get(actor.run.remote("llama3-8b", 2, 2048,
+                                                        seed))
+    # a view of the store, which shutdown unmaps
+    out["forward"]["last"] = out["forward"]["last"].clone()
+    ray_tpu_torch.kill(actor)
+    out["cuda_at_end"] = torch.cuda.is_initialized()
+    ray_tpu_torch.shutdown()
+    torch.save(out, out_path)
+
+
+def phase_serve_runtime(cfg, params, card, fwd_ref, inproc, seed=0,
+                        device="cuda"):
+    """Serve through the framework: a driver process that never touches
+    the card (``serve_runtime_driver``) deploys ``LLMDeployment`` on a
+    replica on the card and streams the 8 requests through it. Held here:
+    its one-at-a-time tokens equal this process's ``LLMEngine`` on the
+    same weights, prompts, order and settings, token for token; every
+    concurrent stream (handle and HTTP) ends with its token count and
+    meets the bf16 bar against the kernel-backed forward; the worker
+    actor's forward equals this process's (``fwd_ref``) bitwise, through
+    kernel 1; neither ``init()`` nor a worker that did not opt in
+    initialised CUDA. Prints TTFT / TPOT p50 and tokens/s through the
+    replica beside this process's engine under the same load
+    (``inproc``: the serving phase's captured engine, and the same 16
+    concurrent requests here)."""
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    out_path = os.path.join(tmp, "serve_runtime.pt")
+    try:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--serve-runtime-driver", out_path],
+                       check=True, timeout=900)
+        got = torch.load(out_path, weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    waves = _waves(cfg, seed)
+    prompts = waves[0] + waves[1]
+    kw = dict(max_slots=8, max_len=512, block_size=16, device=device)
+    # this process's engine, the requests one at a time in the same order
+    eng = LLMEngine(cfg, params, **kw)
+    sequential = []
+    for p in prompts:
+        sink = []
+        eng.submit(p, NEW_TOKENS, sink.append)
+        while eng.step():
+            pass
+        sequential.append(sink[:-1])
+    if got["sequential"] != sequential:
+        bad = [i for i, (a, b) in enumerate(zip(got["sequential"],
+                                                sequential)) if a != b]
+        raise AssertionError(f"serve runtime: requests {bad} through the "
+                             "replica differ from the in-process engine")
+    # the same 16 concurrent requests on this engine, whose prefix cache
+    # now holds what the replica's did (timing)
+    stamps = []
+    for p in prompts * 2:
+        ts = []
+        stamps.append((time.perf_counter(), ts))
+        eng.submit(p, NEW_TOKENS,
+                   lambda x, ts=ts: ts.append(time.perf_counter())
+                   if x is not None else None)
+    while eng.step():
+        pass
+    local = _stream_stats(stamps, NEW_TOKENS * 2 * len(prompts))
+    # the engines' own TTFT / TPOT, from their emit times (admission's
+    # window): the replica's minus these is what the trip to the caller adds
+    local_engine = eng.kv_state()["admission"]
+    del eng
+    torch.cuda.empty_cache()
+    agree = {}
+    for route in ("handle", "http"):
+        streams = got["concurrent"][route]
+        if any(len(t) != NEW_TOKENS for t in streams):
+            raise AssertionError(f"serve runtime {route}: stream lengths "
+                                 f"{[len(t) for t in streams]}")
+        agree[route] = _check_greedy(
+            f"serve runtime {route} bf16",
+            *_greedy_vs_forward(params, cfg, [(p, t + [None]) for p, t in
+                                              zip(prompts, streams)], device),
+            BF16_AGREE_MIN, BF16_GAP_TOL)
+    fwd = got["forward"]
+    bitwise = (fwd["sha256"] == fwd_ref["sha256"]
+               and torch.equal(fwd["last"].view(torch.int16),
+                               fwd_ref["last"].view(torch.int16)))
+    st = got["stats"]
+    rec = dict(
+        init_s=got["init_s"], first_request_s=got["first_request_s"],
+        concurrent_wall_s=got["concurrent_wall_s"],
+        replica_all=got["all_timing"], replica_handle=got["handle_timing"],
+        replica_http=got["http_timing"], in_process_same_load=local,
+        in_process_serving_phase=dict(
+            ttft_p50_ms=inproc["ttft_p50_ms"],
+            tpot_p50_ms=inproc["tpot_p50_ms"],
+            tokens_per_s=inproc["tokens_per_s"]),
+        replica_stats={k: st.get(k) for k in (
+            "steps", "tokens_generated", "max_concurrent", "requests",
+            "prefix_hit_tokens", "flops_per_s", "kv_free", "kv_total")},
+        engine_side={k: dict(ttft_p50_ms=a["ttft_p50_s"] * 1e3,
+                             tpot_p50_ms=a["tpot_p50_s"] * 1e3)
+                     for k, a in (("replica", st["admission"]),
+                                  ("in_process", local_engine))},
+        prefix=st.get("prefix"), agree=agree,
+        forward=dict(bitwise=bitwise, launches=fwd["launches"],
+                     first_s=fwd["first_s"], device=fwd["device"],
+                     last_on=fwd["last"].device.type,
+                     cuda_initialized_before=fwd["cuda_initialized_before"]),
+        device_report=got["device_report"],
+        cuda_in_driver=[got["cuda_after_init"], got["cuda_at_end"]],
+        plain_worker=got["plain_worker"])
+    print(f"[serve runtime] llama3_8b {cfg.n_layers} layers bf16 through "
+          f"LLMDeployment on a replica: {len(prompts)} requests one at a "
+          f"time token-exact against the in-process engine; "
+          f"{json.dumps(rec, default=str)}", flush=True)
+    print(f"[serve runtime] TTFT p50 / TPOT p50 / tokens/s, 16 concurrent "
+          f"streams: replica {rec['replica_all']['ttft_p50_ms']:.1f} / "
+          f"{rec['replica_all']['tpot_p50_ms']:.2f} / "
+          f"{rec['replica_all']['tokens_per_s']:.0f} (handle "
+          f"{rec['replica_handle']['ttft_p50_ms']:.1f} / "
+          f"{rec['replica_handle']['tpot_p50_ms']:.2f} / "
+          f"{rec['replica_handle']['tokens_per_s']:.0f}; HTTP "
+          f"{rec['replica_http']['ttft_p50_ms']:.1f} / "
+          f"{rec['replica_http']['tpot_p50_ms']:.2f} / "
+          f"{rec['replica_http']['tokens_per_s']:.0f}); in-process "
+          f"{local['ttft_p50_ms']:.1f} / {local['tpot_p50_ms']:.2f} / "
+          f"{local['tokens_per_s']:.0f} (serving phase, 8 requests: "
+          f"{inproc['ttft_p50_ms']:.1f} / {inproc['tpot_p50_ms']:.2f} / "
+          f"{inproc['tokens_per_s']:.0f}) on {card}", flush=True)
+    if any(rec["cuda_in_driver"]) or got["plain_worker"][:2] != (False,
+                                                                 False):
+        raise AssertionError(f"CUDA initialised where it must not be: "
+                             f"driver {rec['cuda_in_driver']}, plain worker "
+                             f"{got['plain_worker']}")
+    if not bitwise or fwd["launches"] != fwd["n_layers"]:
+        raise AssertionError(f"worker actor forward: bitwise {bitwise}, "
+                             f"kernel launches {fwd['launches']} of "
+                             f"{fwd['n_layers']}")
+    if fwd["last"].device.type != "cpu" or fwd["cuda_initialized_before"]:
+        raise AssertionError("a CUDA tensor came back off the CPU, or the "
+                             "actor had CUDA before its forward")
+    if st["kv_free"] + st["prefix"]["nodes"] != st["kv_total"]:
+        raise AssertionError(f"replica leaked KV blocks: {st}")
+    if "serve::decode_step_paged" not in rec["device_report"]["programs"]:
+        raise AssertionError("the replica's device-plane snapshot never "
+                             f"reached the driver: {rec['device_report']}")
+    return rec
+
+
 def _cache_bytes(cfg, b, total, rolling):
     cache = models.init_cache(cfg, b, total, rolling=rolling, device="meta")
     return sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
@@ -1426,13 +1793,19 @@ def main():
     _phase("small forward", phase_small_forward)
     _phase("small train", phase_small_train)
     _phase("small train d256", phase_small_train, head_dim=256)
-    cfg, params, launches = _phase("llama3_8b forward", phase_forward, card)
-    _phase("llama3_8b serving", phase_serving, cfg, params, card)
+    cfg, params, launches, fwd_ref = _phase("llama3_8b forward",
+                                            phase_forward, card)
+    served = _phase("llama3_8b serving", phase_serving, cfg, params, card)
     plain_f32 = _phase("llama3_8b serving f32", phase_greedy_f32, cfg,
                        params, card)
     _phase("llama3_8b speculate", phase_speculate, cfg, params, card,
            plain_f32)
     _phase("llama3_8b export/adopt", phase_export_adopt, cfg, params, card)
+    # the serving path through the framework: runtime, object store, Serve
+    _phase("llama3_8b serve (runtime)", phase_serve_runtime, cfg, params,
+           card, fwd_ref, {k: v[1] for k, v in served["captured"].items()
+                           if k in ("ttft_p50_ms", "tpot_p50_ms",
+                                    "tokens_per_s")})
     del params
     torch.cuda.empty_cache()
     counts = _phase("llama_1b training", phase_train, card)
@@ -1448,8 +1821,9 @@ def main():
         "gemma2_train_window4096_L8192_softcap50_d256": n_window * TRAIN_STEPS,
         "gemma2_train_global_L8192_softcap50_d256":
             (gemma_train.n_layers - n_window) * TRAIN_STEPS}
-    cfg, params, launches_d256 = _phase("gemma2_9b forward", phase_forward,
-                                        card, "gemma2-9b", b=1, l=8192)
+    cfg, params, launches_d256, _ = _phase("gemma2_9b forward",
+                                           phase_forward, card, "gemma2-9b",
+                                           b=1, l=8192)
     # the forward's attention shapes: 4096-window and global layers at
     # B=1, L=8192, each a kernel case
     n_window = sum(1 for w in cfg.layer_windows if w == 4096)
@@ -1512,4 +1886,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--serve-runtime-driver"]:
+        serve_runtime_driver(sys.argv[2])
+    else:
+        main()

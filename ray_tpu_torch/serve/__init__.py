@@ -1,23 +1,71 @@
-"""LLM serving on PyTorch: the paged continuous-batching engine (with KV
-export and adoption for disaggregated serving), speculative decoding over
-it, and their host-side KV bookkeeping and admission control."""
+"""ray_tpu_torch.serve — online serving over replica actors.
+
+Role analog: ``python/ray/serve`` (SURVEY §2.5, §3.6). Control plane =
+named controller actor reconciling replica actors; data plane = handle →
+power-of-two-choices routing → replica actor call; plus dynamic batching,
+model composition, autoscaling, and an HTTP proxy. LLM serving on PyTorch:
+``LLMDeployment`` runs the paged continuous-batching engine (with KV export
+and adoption for disaggregated serving) on a replica, on the card or the
+CPU; speculative decoding runs over the same engine.
+
+Not ported yet (ROADMAP.md queue 1): compiled deployments, KV transfer and
+disaggregation, the gRPC proxy, the multiplexed deployments.
+"""
 
 from ray_tpu_torch.serve.admission import (AdmissionController,
                                            DeadlineExceededError,
                                            RequestShedError, SLOConfig)
+from ray_tpu_torch.serve.api import (
+    delete,
+    get_deployment_handle,
+    get_multiplexed_model_id,
+    multiplexed,
+    run,
+    shutdown,
+    start_http_proxy,
+    status,
+)
+from ray_tpu_torch.serve.batching import batch
+from ray_tpu_torch.serve.deployment import (
+    Application,
+    AutoscalingConfig,
+    Deployment,
+    DeploymentConfig,
+    deployment,
+)
+from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.kv_cache import BlockPool, KVCacheError, PrefixCache
-from ray_tpu_torch.serve.llm import KVExport, LLMEngine
+from ray_tpu_torch.serve.llm import KVExport, LLMDeployment, LLMEngine
 from ray_tpu_torch.serve.multiplex import SpeculativeLLMEngine
+from ray_tpu_torch.serve.proxy import HTTPProxy
 
 __all__ = [
-    "AdmissionController",
-    "BlockPool",
-    "DeadlineExceededError",
-    "KVCacheError",
-    "KVExport",
+    "run",
+    "start_http_proxy",
+    "shutdown",
+    "delete",
+    "status",
+    "deployment",
+    "Deployment",
+    "DeploymentConfig",
+    "AutoscalingConfig",
+    "Application",
+    "DeploymentHandle",
+    "DeploymentResponse",
+    "HTTPProxy",
+    "batch",
+    "LLMDeployment",
     "LLMEngine",
-    "PrefixCache",
-    "RequestShedError",
-    "SLOConfig",
+    "KVExport",
     "SpeculativeLLMEngine",
+    "BlockPool",
+    "KVCacheError",
+    "PrefixCache",
+    "SLOConfig",
+    "AdmissionController",
+    "RequestShedError",
+    "DeadlineExceededError",
+    "multiplexed",
+    "get_multiplexed_model_id",
+    "get_deployment_handle",
 ]

@@ -1,6 +1,7 @@
-"""Continuous-batching LLM serving engine (twin of the colocated half of
-``ray_tpu/serve/llm.py``'s ``LLMEngine``: the paged engine, and the dense
-one with ``paged=False``).
+"""Continuous-batching LLM serving (twin of ``ray_tpu/serve/llm.py``): the
+``LLMEngine`` (the paged engine, and the dense one with ``paged=False``) and
+``LLMDeployment``, the Serve deployment that runs one engine on a replica
+and streams its tokens (the colocated role).
 
 - One step (:func:`models.decode_step_paged`) over a fixed slot grid
   [max_slots, prefill_chunk]: a decoding slot advances one token while a
@@ -36,6 +37,8 @@ one with ``paged=False``).
 from __future__ import annotations
 
 import math
+import os
+import queue
 import threading
 import time
 from dataclasses import dataclass, field
@@ -48,10 +51,15 @@ from ray_tpu_torch import config as _knobs
 from ray_tpu_torch import models
 from ray_tpu_torch._device import Device, resolve_device
 from ray_tpu_torch.serve.admission import (AdmissionController,
-                                           DeadlineExceededError, SLOConfig)
+                                           DeadlineExceededError,
+                                           RequestShedError, SLOConfig)
 from ray_tpu_torch.serve.kv_cache import BlockPool, PrefixCache
 from ray_tpu_torch.util import device_plane
 from ray_tpu_torch.util.device_plane import registered_graph
+
+
+#: a token-stream sweep that met no terminal item
+_NO_ITEM = object()
 
 
 def _next_pow2(n: int) -> int:
@@ -856,3 +864,308 @@ class LLMEngine:
         out["admission"] = self.admission.snapshot()
         return out
 
+
+class LLMDeployment:
+    """Serve deployment: continuous-batching token streaming (twin of the
+    colocated role of ``ray_tpu/serve/llm.py``'s ``LLMDeployment``).
+
+    Deploy with a concurrent replica so requests interleave; on the card the
+    replica asks for a GPU and opts in to seeing it::
+
+        app = serve.deployment(
+            LLMDeployment,
+            ray_actor_options={"num_gpus": 1, "max_concurrency": 16,
+                               "runtime_env": {"env_vars": {
+                                   "CUDA_VISIBLE_DEVICES": "0"}}},
+        ).bind("llama3-8b", max_slots=8, max_len=512)
+        handle = serve.run(app, name="llm")
+        for tok in handle.options(stream=True).remote([1, 2, 3], 16):
+            ...
+
+    ``device`` (default ``cuda``; ``"cpu"`` runs on the CPU) and
+    ``cuda_graphs`` go to the :class:`LLMEngine`; the other arguments are
+    the reference's. ``params`` may be a dict of tensors bound through the
+    object store (they arrive as CPU tensors and the engine's ``device``
+    decides where they run). ``__call__`` also takes one dict,
+    ``{"prompt_tokens": [...], "max_new_tokens": n}``: the body an HTTP
+    client posts to the proxy's ``?stream=1``. Each ``__call__`` is a SYNC
+    generator; the
+    engine advances on a dedicated background thread
+    (``llm-decode-loop``), so all concurrent callers share one captured
+    decode program and one paged KV pool. ``slo`` (dict or
+    :class:`SLOConfig`) arms admission shedding; per-request ``deadline_s``
+    bounds queueing AND streaming.
+
+    The disaggregated roles' entry points (``prefill_export``,
+    ``adopt_stream``) and ``drain_sessions`` need ``serve/kv_transfer.py``
+    and the device channel, and raise until they are ported.
+    """
+
+    def __init__(self, model="llama-debug", *, max_slots: int = 8,
+                 max_len: int = 256, temperature: float = 0.0,
+                 params=None, seed: int = 0, paged: bool = True,
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 slo: Optional[Any] = None,
+                 role: str = "colocated",
+                 stream_batch: int = 1,
+                 cuda_graphs: bool = True,
+                 device: Optional[Device] = None):
+        if isinstance(slo, dict):
+            slo = SLOConfig(**slo)
+        # stream_batch > 1: each streamed message carries a LIST of up to
+        # stream_batch tokens, whatever the engine produced since the
+        # consumer last kept up (the first token still ships alone)
+        self._stream_batch = max(1, int(stream_batch))
+        self._model_id = model if isinstance(model, str) else "custom"
+        self.engine = self._engine_factory(
+            model, params, max_slots=max_slots, max_len=max_len,
+            temperature=temperature, seed=seed, paged=paged,
+            block_size=block_size, num_blocks=num_blocks,
+            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+            slo=slo, role=role, cuda_graphs=cuda_graphs, device=device)
+        self._error: Optional[BaseException] = None
+        self._wake = threading.Event()
+        self._stop = False
+        self._ident: Optional[Dict[str, str]] = None
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="llm-decode-loop")
+        self._thread.start()
+
+    def _engine_factory(self, *args, **kw) -> LLMEngine:
+        """Engine construction seam: subclasses swap the engine class."""
+        return LLMEngine(*args, **kw)
+
+    def _loop(self) -> None:
+        while not self._stop:
+            try:
+                busy = self.engine.step()
+            except BaseException as e:  # noqa: BLE001 - must not die silent
+                # fail every outstanding request and surface via
+                # check_health; the thread keeps running so a transient
+                # error doesn't permanently kill the replica
+                self._error = e
+                self.engine.abort_all(e)
+                self._wake.wait(timeout=1.0)
+                self._wake.clear()
+                continue
+            if not busy:
+                # idle: park until the next submit
+                self._wake.wait(timeout=0.2)
+                self._wake.clear()
+
+    def __call__(self, prompt_tokens, max_new_tokens: int = 16,
+                 eos: Optional[int] = None,
+                 deadline_s: Optional[float] = None):
+        if isinstance(prompt_tokens, dict):
+            # one JSON body, as the HTTP proxy passes it:
+            # {"prompt_tokens": [...], "max_new_tokens": n, ...}
+            req = dict(prompt_tokens)
+            prompt_tokens = req.pop("prompt_tokens")
+            max_new_tokens = int(req.pop("max_new_tokens", max_new_tokens))
+            eos = req.pop("eos", eos)
+            deadline_s = req.pop("deadline_s", deadline_s)
+            if req:
+                raise TypeError(f"unknown request keys {sorted(req)}")
+        q: "queue.Queue[Any]" = queue.Queue()
+
+        def submit():
+            return self.engine.submit(prompt_tokens, max_new_tokens,
+                                      q.put_nowait, eos=eos,
+                                      deadline_s=deadline_s)
+
+        return self._token_stream(q, submit, len(prompt_tokens),
+                                  max_new_tokens, deadline_s)
+
+    def _token_stream(self, q: "queue.Queue[Any]", submit,
+                      n_prompt: int, max_new_tokens: int,
+                      deadline_s: Optional[float]):
+        """Run ``submit`` (engine intake), then drain the request's token
+        queue to the caller."""
+        from ray_tpu_torch.util import tracing
+
+        stall_timeout = float(_knobs.get("llm_stall_timeout_s"))
+        deadline = (time.monotonic() + deadline_s
+                    if deadline_s is not None else None)
+        # manual spans (not span()): this is a generator — a thread-local
+        # span context held across a yield would leak onto whatever the
+        # worker thread runs next. queue = admission wait to the FIRST
+        # token; stream = the whole token stream.
+        stream_span = tracing.manual_span(
+            "serve.llm::stream", {"prompt_tokens": n_prompt,
+                                  "max_new_tokens": max_new_tokens,
+                                  "role": self.engine.role})
+        queue_span = tracing.manual_span(
+            "serve.llm::queue", {},
+            parent=stream_span.traceparent if stream_span else None)
+        req = None
+        produced = 0
+        try:
+            # submit INSIDE the try: a dead engine must still finish the
+            # admission span
+            req = submit()
+            self._wake.set()
+            while True:
+                wait = stall_timeout
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise DeadlineExceededError(
+                            f"request deadline ({deadline_s}s) elapsed "
+                            f"after {produced} tokens")
+                    wait = min(wait, remaining)
+                try:
+                    tok = q.get(timeout=wait)
+                except queue.Empty:
+                    if (deadline is not None
+                            and time.monotonic() >= deadline):
+                        raise DeadlineExceededError(
+                            f"request deadline ({deadline_s}s) elapsed "
+                            f"after {produced} tokens")
+                    raise TimeoutError(
+                        f"llm decode loop produced no token for "
+                        f"{stall_timeout:.0f}s"
+                        + (f" (loop error: {self._error!r})"
+                           if self._error else ""))
+                if queue_span is not None:
+                    queue_span.finish()
+                    queue_span = None
+                if tok is None:
+                    return
+                if isinstance(tok, (DeadlineExceededError,
+                                    RequestShedError)):
+                    raise tok  # admission/deadline verdicts pass through
+                if isinstance(tok, BaseException):
+                    raise RuntimeError(f"llm decode loop failed: {tok!r}")
+                if self._stream_batch == 1:
+                    produced += 1
+                    yield tok
+                    continue
+                # micro-batched delivery: sweep whatever else the engine
+                # already produced (bounded by stream_batch); a terminal
+                # item found mid-sweep is handled AFTER the tokens before it
+                chunk = [tok]
+                terminal = _NO_ITEM
+                while len(chunk) < self._stream_batch:
+                    try:
+                        nxt = q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if nxt is None or isinstance(nxt, BaseException):
+                        terminal = nxt
+                        break
+                    chunk.append(nxt)
+                produced += len(chunk)
+                yield chunk
+                if terminal is _NO_ITEM:
+                    continue
+                if terminal is None:
+                    return
+                if isinstance(terminal, (DeadlineExceededError,
+                                         RequestShedError)):
+                    raise terminal
+                raise RuntimeError(
+                    f"llm decode loop failed: {terminal!r}")
+        finally:
+            # client stopped consuming (disconnect / GC'd generator):
+            # free the slot instead of generating into an orphan queue
+            if req is not None:
+                self.engine.cancel(req)
+            if queue_span is not None:
+                queue_span.finish(error="no token produced")
+            if stream_span is not None:
+                stream_span.finish({"tokens": produced})
+
+    # -- disaggregated prefill/decode and drain: not ported yet -----------
+
+    def identity(self) -> Dict[str, str]:
+        """This replica's identity: actor id + node id. Cached once a
+        request has captured the actor id (it is task-context-local)."""
+        if self._ident is None or self._ident["actor"] is None:
+            try:
+                from ray_tpu_torch.core.runtime_context import \
+                    get_runtime_context
+
+                ctx = get_runtime_context()
+                self._ident = {"actor": ctx.get_actor_id(),
+                               "node": ctx.get_node_id(),
+                               "role": self.engine.role}
+            except Exception:
+                # no runtime at all (an in-process harness)
+                self._ident = {"actor": None,
+                               "node": os.environ.get("RTPU_NODE_ID",
+                                                      "local"),
+                               "role": self.engine.role}
+        return self._ident
+
+    def prefill_export(self, prompt_tokens, transfer: Dict[str, Any],
+                       deadline_s: Optional[float] = None):
+        """Prefill-pool entry point: ships the prompt's KV blocks to a
+        decode replica. Not ported yet."""
+        raise NotImplementedError(
+            "prefill_export ships KV over serve/kv_transfer.py and the "
+            "device channel, which are not ported yet (ROADMAP.md queue 1 "
+            "item 2)")
+
+    def adopt_stream(self, prompt_tokens, desc: Dict[str, Any],
+                     max_new_tokens: int = 16, eos: Optional[int] = None,
+                     deadline_s: Optional[float] = None):
+        """Decode-pool entry point: adopts shipped KV blocks and streams.
+        Not ported yet."""
+        raise NotImplementedError(
+            "adopt_stream fetches KV over serve/kv_transfer.py, which is "
+            "not ported yet (ROADMAP.md queue 1 item 2)")
+
+    def drain_sessions(self, destinations: List[Dict[str, Any]],
+                       timeout_s: float = 30.0) -> Dict[str, Any]:
+        """Preemption drain: migrates live sessions. Not ported yet."""
+        raise NotImplementedError(
+            "drain_sessions migrates sessions over serve/kv_transfer.py, "
+            "which is not ported yet (ROADMAP.md queue 1 item 2)")
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        out = dict(self.engine.stats)
+        out.update(self.engine.kv_state())
+        return out
+
+    def kv_state(self) -> Dict[str, Any]:
+        return self.engine.kv_state()
+
+    def load_state(self) -> Dict[str, Any]:
+        """Load report the replica pushes to the controller (the routing +
+        autoscaling signal). ``kv_free`` is the CLAIMABLE count (free list
+        + trie-evictable): prefix-cache retention is cache value, not
+        pressure."""
+        s = self.engine.kv_state()
+        ident = self.identity()
+        return {"inflight": s["inflight"] + s["queued"],
+                "models": {self._model_id: {
+                    "state": "hbm",
+                    "inflight": s["inflight"] + s["queued"]}},
+                "prefix_digest": s.get("prefix_digest", []),
+                "kv_free": s.get("kv_claimable", s.get("kv_free", 0)),
+                "kv_total": s.get("kv_total", 0),
+                "role": s.get("role", "colocated"),
+                "node": ident["node"],
+                "actor": ident["actor"],
+                "queued": s["queued"],
+                "max_slots": s["max_slots"],
+                "block_size": s.get("block_size", 0)}
+
+    def check_health(self) -> None:
+        if not self._thread.is_alive():
+            raise RuntimeError("llm decode loop thread died")
+        if self._error is not None:
+            raise RuntimeError(f"llm decode loop error: {self._error!r}")
+
+    def close(self) -> None:
+        """Stop the step loop."""
+        self._stop = True
+        self._wake.set()
+
+    def __del__(self):  # pragma: no cover - GC-time best effort
+        self.close()

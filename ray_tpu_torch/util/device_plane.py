@@ -25,9 +25,14 @@ is recorded here.
 never turns capture off: a registered program on the card is captured and
 replayed either way, and a capture or replay that fails raises.
 
-Not ported until the runtime is: the federation (``DeviceStore``,
-``merge_report``, ``node_processes``), the metrics and the
-``jit_recompile`` event.
+- **Federation** (receiver side): a worker that imported the plane ships
+  its :func:`snapshot` to the driver when its registry's version moves;
+  the driver's :class:`DeviceStore` keeps the latest one per worker,
+  :func:`node_processes` adds the driver's own, and :func:`merge_report`
+  folds them into one report. The card's memory in a snapshot comes from
+  a process that already holds a CUDA context; asking never makes one.
+
+Not ported yet: the metrics and the ``jit_recompile`` event.
 """
 
 from __future__ import annotations
@@ -523,12 +528,17 @@ def live_buffer_census() -> Dict[str, Any]:
 
 
 def _device_memory() -> Optional[Dict[str, int]]:
-    """The CUDA allocator's watermarks on the current card, or None where
-    CUDA was never initialised in this process."""
+    """The CUDA allocator's watermarks on the current card and the card's
+    free and total bytes (``torch.cuda.mem_get_info``), or None where CUDA
+    was never initialised in this process: asking must not make a
+    context."""
     if not torch.cuda.is_initialized():
         return None
     ms = torch.cuda.memory_stats()
+    free, total = torch.cuda.mem_get_info()
     return {"bytes_in_use": int(ms.get("allocated_bytes.all.current", 0)),
+            "device_bytes_free": int(free),
+            "device_bytes_total": int(total),
             "peak_bytes_in_use": int(ms.get("allocated_bytes.all.peak", 0)),
             "bytes_reserved": int(ms.get("reserved_bytes.all.current", 0)),
             "peak_bytes_reserved": int(ms.get("reserved_bytes.all.peak", 0)),
@@ -555,3 +565,88 @@ def snapshot(min_version: Optional[int] = None,
     if census:
         snap["live_buffers"] = live_buffer_census()
     return snap
+
+
+class DeviceStore:
+    """Receiver side (driver): the latest snapshot per origin with origin
+    labels; a new snapshot replaces the old one (registry rows are mutable
+    state, not a stream)."""
+
+    MAX_ORIGINS = 256
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._origins: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+
+    def ingest(self, origin: str, labels: Dict[str, str],
+               snap: Dict[str, Any]) -> None:
+        with self._lock:
+            self._origins.pop(origin, None)
+            self._origins[origin] = {"labels": dict(labels), "snap": snap}
+            while len(self._origins) > self.MAX_ORIGINS:
+                self._origins.popitem(last=False)
+
+    def export(self) -> List[Dict[str, Any]]:
+        """[{**snap, **labels}] for every known origin."""
+        with self._lock:
+            return [{**e["snap"], **e["labels"]}
+                    for e in self._origins.values()]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._origins.clear()
+
+
+def node_processes(rt: Any = None,
+                   component: Optional[str] = None) -> List[Dict[str, Any]]:
+    """This node's process entries: the local process's snapshot plus every
+    worker snapshot its DeviceStore ingested."""
+    out: List[Dict[str, Any]] = []
+    snap = snapshot()
+    if snap and (snap["programs"] or snap.get("hbm")):
+        ent = dict(snap)
+        if component:
+            ent["component"] = component
+        out.append(ent)
+    store = getattr(rt, "device_store", None) if rt is not None else None
+    if store is not None:
+        out.extend(store.export())
+    return out
+
+
+def merge_report(entries: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Fold process entries (each a labeled snapshot) into one report: flat
+    program rows with origin labels, per-process device memory and census,
+    and totals."""
+    programs: List[Dict[str, Any]] = []
+    processes: List[Dict[str, Any]] = []
+    totals = {"processes": 0, "programs": 0, "compiles": 0,
+              "retraces": 0, "live_buffer_bytes": 0}
+    hbm_used = hbm_limit = 0
+    for ent in entries:
+        labels = {k: ent[k] for k in ("node_id", "worker_id", "component",
+                                      "pid") if k in ent}
+        proc: Dict[str, Any] = dict(labels)
+        proc["programs"] = len(ent.get("programs") or ())
+        if ent.get("hbm"):
+            proc["hbm"] = ent["hbm"]
+            hbm_used += int(ent["hbm"].get("bytes_in_use", 0))
+            hbm_limit += int(ent["hbm"].get("bytes_limit", 0))
+        if ent.get("live_buffers"):
+            proc["live_buffers"] = ent["live_buffers"]
+            totals["live_buffer_bytes"] += int(
+                ent["live_buffers"].get("bytes", 0))
+        processes.append(proc)
+        totals["processes"] += 1
+        for row in ent.get("programs") or ():
+            r = dict(row)
+            r.update(labels)
+            programs.append(r)
+            totals["programs"] += 1
+            totals["compiles"] += int(row.get("compiles", 0))
+            totals["retraces"] += int(row.get("retraces", 0))
+    if hbm_limit:
+        totals["hbm"] = {"bytes_in_use": hbm_used, "bytes_limit": hbm_limit}
+    programs.sort(key=lambda r: (-r.get("compile_s_total", 0.0),
+                                 r.get("program", "")))
+    return {"processes": processes, "programs": programs, "totals": totals}

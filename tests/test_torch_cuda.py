@@ -669,3 +669,77 @@ def test_failed_capture_raises_without_a_fallback(cuda):
     with pytest.raises(RuntimeError):
         prog(torch.ones(16, device=cuda))
     assert prog.captures == 0
+
+
+# -- the runtime on the card ------------------------------------------------
+
+@pytest.fixture
+def runtime(cuda):
+    import os
+
+    import ray_tpu_torch as rt
+
+    saved = {k: os.environ.get(k) for k in ("RTPU_STORE_CAPACITY",
+                                            "RTPU_STORE_PREFAULT_BYTES")}
+    os.environ.update(RTPU_STORE_CAPACITY=str(256 << 20),
+                      RTPU_STORE_PREFAULT_BYTES=str(16 << 20))
+    rt.init(num_cpus=4)
+    yield rt
+    rt.shutdown()
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def test_cuda_tensor_put_comes_back_on_the_cpu(runtime):
+    rt = runtime
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    value = {"w": torch.randn(512, 256, generator=gen, device="cuda").to(
+                 torch.bfloat16),
+             "ids": torch.arange(4096, device="cuda")}
+    got = rt.get(rt.put(value))
+    for k, want in value.items():
+        assert got[k].device.type == "cpu" and got[k].dtype == want.dtype
+        assert torch.equal(got[k].view(torch.uint8) if k == "ids" else
+                           got[k].view(torch.int16),
+                           (want.view(torch.uint8) if k == "ids" else
+                            want.view(torch.int16)).cpu())
+
+    @rt.remote
+    def reader(d):
+        import torch
+
+        return d["w"].device.type, torch.cuda.is_initialized()
+
+    # a worker that reads it stays off the card
+    assert rt.get(reader.remote(rt.put(value))) == ("cpu", False)
+
+
+def test_gpu_actor_that_opts_in_reaches_the_card(runtime):
+    rt = runtime
+    assert rt.available_resources().get("GPU", 0) >= 1
+
+    @rt.remote
+    def plain():
+        import torch
+
+        return torch.cuda.is_available(), torch.cuda.is_initialized()
+
+    @rt.remote(num_gpus=1,
+               runtime_env={"env_vars": {"CUDA_VISIBLE_DEVICES": "0"}})
+    class OnCard:
+        def run(self):
+            import torch
+
+            x = torch.ones(1024, device="cuda")
+            return (torch.cuda.get_device_name(0), float(x.sum()),
+                    x * 2)
+
+    assert rt.get(plain.remote()) == (False, False)
+    a = OnCard.remote()
+    name, total, doubled = rt.get(a.run.remote())
+    assert name == torch.cuda.get_device_name(0) and total == 1024.0
+    assert doubled.device.type == "cpu" and float(doubled.sum()) == 2048.0
+    rt.kill(a)

@@ -1,10 +1,17 @@
 """The PyTorch port stands alone: no module of ``ray_tpu_torch`` (and not
 ``chip_smoke.py``) imports JAX or anything of the JAX package ``ray_tpu``,
 not even a module with no JAX in it. An AST walk, so the check also covers
-imports inside functions."""
+imports inside functions.
+
+The runtime also starts processes from module paths written as strings (the
+zygote's and the worker's ``runpy.run_module``): no string literal may name
+a ``ray_tpu.`` module, since a copy that kept one would quietly run the JAX
+package's worker. And every ``ray_tpu_torch`` import the port writes must
+resolve to a module of the port (and a name that module defines)."""
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -66,3 +73,112 @@ def test_checker_catches_forbidden_imports(tmp_path):
     ok = tmp_path / "ok.py"
     ok.write_text("import ray_tpu_torch\nfrom ray_tpu_torch.ops import layers\n")
     assert _forbidden_imports(str(ok)) == []
+
+
+# "ray_tpu." not preceded by a word character, a dot or a slash: names a
+# module of the JAX package (``ray_tpu_torch.`` and ``ray_tpu/ops/...``
+# file paths do not match)
+_REF_MODULE = re.compile(r"(?<![\w./])ray_tpu\.[A-Za-z_]")
+
+
+def _reference_module_strings(path):
+    tree = ast.parse(open(path).read(), path)
+    return sorted({node.value.strip()[:80] for node in ast.walk(tree)
+                   if isinstance(node, ast.Constant)
+                   and isinstance(node.value, str)
+                   and _REF_MODULE.search(node.value)})
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_string_names_a_reference_module(path):
+    assert _reference_module_strings(path) == [], path
+
+
+def _module_file(name):
+    base = os.path.join(ROOT, *name.split("."))
+    for cand in (os.path.join(base, "__init__.py"), base + ".py"):
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+def _top_level_names(path):
+    """Names a module defines at its top level (assignments, defs, classes,
+    imports), plus its submodules if it is a package."""
+    tree = ast.parse(open(path).read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.AnnAssign, ast.AugAssign)) \
+                and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    if path.endswith("__init__.py"):
+        d = os.path.dirname(path)
+        names.update(f[:-3] if f.endswith(".py") else f
+                     for f in os.listdir(d))
+    return names
+
+
+def _unresolved_port_imports(path):
+    tree = ast.parse(open(path).read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names
+                    if a.name.split(".")[0] == "ray_tpu_torch"
+                    and _module_file(a.name) is None]
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module
+              and node.module.split(".")[0] == "ray_tpu_torch"):
+            target = _module_file(node.module)
+            if target is None:
+                bad.append(node.module)
+                continue
+            defined = _top_level_names(target)
+            bad += [f"{node.module}.{a.name}" for a in node.names
+                    if a.name != "*" and a.name not in defined]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            bad += [m for m in re.findall(r"run_module\('([\w.]+)'",
+                                          node.value)
+                    if _module_file(m) is None]
+    return bad
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_resolve_to_port_modules(path):
+    assert _unresolved_port_imports(path) == [], path
+
+
+def test_string_and_resolution_checkers_catch_faults(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text(
+        "BOOT = \"runpy.run_module('ray_tpu.core.worker')\"\n"
+        "ARGV = ['ray_tpu.core.worker', '--addr']\n"
+        "def f():\n    from ray_tpu_torch.dag import InputNode\n"
+        "    from ray_tpu_torch.core.runtime import no_such_name\n"
+        "    import ray_tpu_torch.cluster.adapter\n"
+        "BOOT2 = \"runpy.run_module('ray_tpu_torch.core.nothing')\"\n")
+    assert len(_reference_module_strings(str(bad))) == 2
+    assert sorted(_unresolved_port_imports(str(bad))) == [
+        "ray_tpu_torch.cluster.adapter",
+        "ray_tpu_torch.core.nothing",
+        "ray_tpu_torch.core.runtime.no_such_name",
+        "ray_tpu_torch.dag"]
+    ok = tmp_path / "ok.py"
+    ok.write_text("P = 'ray_tpu/ops/flash_pallas.py:63'\n"
+                  "B = \"runpy.run_module('ray_tpu_torch.core.worker')\"\n"
+                  "from ray_tpu_torch.core.runtime import init\n"
+                  "from ray_tpu_torch.util import device_plane\n")
+    assert _reference_module_strings(str(ok)) == []
+    assert _unresolved_port_imports(str(ok)) == []
