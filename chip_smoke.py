@@ -61,6 +61,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    batch, through all three kernels, and at Gemma-2-9B width cut to 8
    layers (B=1, L=8192, head dim 256: the D = 256 backward kernels);
    each with its device time by kernel group from ``torch.profiler``;
+   then Llama-1B again through the framework: 8 steps in this process,
+   then ``TorchTrainer`` on one ``use_gpu`` worker whose loop checkpoints
+   after step 4 (``save_checkpoint_async``) and kills its process after
+   step 6; the restarted gang resumes from step 4's checkpoint, and its
+   losses must equal this process's bitwise, with 32 / 16 / 16 launches
+   a step in the worker (step times, ``StepTelemetry``'s tokens/s and
+   MFU, the checkpoint's bytes, snapshot, write and copy seconds, death
+   to the first resumed step and ``fit()`` to the first report printed);
 8. Gemma-2-9B (all 42 layers, head dim 256, bf16 weights): ``models.forward``
    at B=1, L=8192 through the kernel at D = 256; the paged and the dense
    (``paged=False``) engine each answer the 8 requests of phase 6 (eager
@@ -96,12 +104,12 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import models
+from ray_tpu_torch.accelerators import gpu
 from ray_tpu_torch.ops import _build, flash_cuda
 from ray_tpu_torch.serve import LLMEngine, SpeculativeLLMEngine
 from ray_tpu_torch.train import TrainLoopHelper, adamw
 from ray_tpu_torch.util import device_plane
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # f32 forward, card kernel vs CPU blockwise: summation order over 2 layers
@@ -158,6 +166,16 @@ def _busy_ms(fn, calls=10, samples=3, warmup=3):
     return float(np.median(times))
 
 
+def _peak_bf16():
+    """The card's dense bf16 peak: the number ``StepTelemetry`` takes MFU
+    against (``accelerators/gpu.py`` ``peak_flops()``)."""
+    peak = gpu.peak_flops()
+    if peak is None:
+        raise AssertionError(f"no dense bf16 peak known for "
+                             f"{torch.cuda.get_device_name(0)}")
+    return peak
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -169,7 +187,8 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+          f"torch {torch.__version__} cuda {torch.version.cuda} | dense bf16 "
+          f"peak {_peak_bf16():.4g} FLOP/s", flush=True)
     return card.splitlines()[0]
 
 
@@ -318,7 +337,7 @@ def _bound(q, k, v, causal, window):
     flops = 4 * d * b * h * _visible_pairs(lq, lk, causal, window)
     nbytes = (2 * q.numel() * q.element_size()
               + (k.numel() + v.numel()) * k.element_size() + 4 * b * h * lq)
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = _peak_bf16() if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -547,7 +566,7 @@ def _bwd_bounds(q, k, causal, window):
     flop = 2 * d * b * h * _visible_pairs(lq, lk, causal, window)
     qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rows = 4 * b * h * lq  # one f32 row vector: lse or D
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = _peak_bf16() if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
 
     def bound(products, nbytes):
         t_ops, t_bytes = products * flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1661,7 +1680,7 @@ def phase_train(card, seed=0, cfg=None, b=4, l=4096, device="cuda"):
     step_s = dt / TRAIN_STEPS
     flops_token = _train_flops_per_token(cfg, l)
     row = dict(step_ms=step_s * 1e3, tokens_per_s=b * l / step_s,
-               mfu=flops_token * b * l / step_s / PEAK_BF16_FLOPS,
+               mfu=flops_token * b * l / step_s / _peak_bf16(),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                loss_before=loss0, loss_after=loss, grad_norm=grad_norm,
                launches_per_step={k: v / TRAIN_STEPS
@@ -1677,6 +1696,258 @@ def phase_train(card, seed=0, cfg=None, b=4, l=4096, device="cuda"):
         raise AssertionError(f"training did not progress: loss {loss0} -> "
                              f"{loss}, grad norm {grad_norm}")
     return counts
+
+
+# The trainer phase: llama_1b at full width and depth, B=4, L=4096, as
+# phase_train; each step's batch drawn from seed + step.
+TRAINER_STEPS, TRAINER_CKPT_STEP, TRAINER_DIE_AFTER = 8, 4, 6
+# The resumed steps' losses against the in-process run's: the same weights
+# and batches on the same card through the same kernels, all three
+# deterministic, and the checkpoint restores parameters, AdamW moments and
+# steps bit for bit, so the losses must be equal (a gap of 0).
+TRAINER_LOSS_TOL = 0.0
+
+
+def _trainer_batch(cfg, b, l, seed, step, device):
+    gen = torch.Generator(device=device).manual_seed(seed + step)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, l + 1),
+                                    generator=gen, device=device)}
+
+
+def _trainer_loop(config):
+    """The train loop of the trainer phase, run in the worker: the helper
+    from ``seed`` (or the checkpoint it is handed), one ``run_step`` a step
+    on the batch of ``seed + step``, each step reported with its loss, its
+    kernel launches in this process and ``StepTelemetry``'s tokens/s and
+    MFU; after step ``ckpt_step`` ``save_checkpoint_async`` (waited on) and
+    the checkpoint reported; on the first attempt the process exits after
+    reporting ``die_after``. It travels to the worker by value (this
+    script runs as ``__main__``), with :func:`_trainer_batch`; what else it
+    uses it imports itself."""
+    import os
+    import shutil
+    import tempfile
+    import time
+
+    import torch
+
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.ops import flash_cuda
+    from ray_tpu_torch.train import (Checkpoint, TrainLoopHelper, adamw,
+                                     load_pytree)
+
+    started = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = models.get_config(config["model"])
+    b, l, seed, dev = config["b"], config["l"], config["seed"], config["device"]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    helper = TrainLoopHelper.create(
+        lambda: models.init_params(gen, cfg, device=dev),
+        lambda p, bt: models.loss_and_metrics(p, bt, cfg), adamw(1e-4),
+        device=dev)
+    resumed, start, load_s = train.get_checkpoint(), 0, None
+    if resumed is not None:
+        t0 = time.perf_counter()
+        tree = load_pytree(os.path.join(resumed.path, "rank_0"), device=dev)
+        helper.restore(tree)
+        del tree
+        sync()
+        load_s = time.perf_counter() - t0
+        start = int(helper.state["step"])
+    marker = os.path.join(train.get_context().get_trial_dir(), "died")
+    telemetry = train.get_step_telemetry()
+    prev_report_s = None
+    for step in range(start, config["steps"]):
+        batch = _trainer_batch(cfg, b, l, seed, step, dev)
+        sync()
+        flash_cuda.launches = flash_cuda.launches_dkv = 0
+        flash_cuda.launches_dq = 0
+        t0 = time.perf_counter()
+        loss = helper.run_step(batch)["loss"].item()
+        step_s = time.perf_counter() - t0
+        telemetry.record_step(step_s, tokens=b * l,
+                              flops=config["flops_per_step"], loss=loss)
+        snap = telemetry.snapshot()
+        metrics = {"step": step + 1, "loss": loss, "step_s": step_s,
+                   "launches": [flash_cuda.launches, flash_cuda.launches_dkv,
+                                flash_cuda.launches_dq],
+                   "telemetry_tokens_per_s": snap.get("tokens_per_s"),
+                   "telemetry_mfu": snap.get("mfu"), "time": time.time(),
+                   "started": started, "resumed": resumed is not None,
+                   "load_s": load_s, "prev_report_s": prev_report_s,
+                   "pid": os.getpid()}
+        ckpt = d = None
+        if step + 1 == config["ckpt_step"]:
+            d = tempfile.mkdtemp(dir=config["scratch"])
+            t0 = time.perf_counter()
+            pending = helper.save_checkpoint_async(d)
+            metrics["snapshot_s"] = time.perf_counter() - t0
+            pending.wait()
+            metrics["write_s"] = time.perf_counter() - t0 - metrics[
+                "snapshot_s"]
+            metrics["ckpt_bytes"] = sum(
+                os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            ckpt = Checkpoint(d)
+        t0 = time.perf_counter()
+        train.report(metrics, checkpoint=ckpt)
+        prev_report_s = time.perf_counter() - t0
+        if d is not None:
+            shutil.rmtree(d)         # the trial directory holds its copy
+        if step + 1 == config["die_after"] and not os.path.exists(marker):
+            # report() returns once the driver took the result, while this
+            # worker's reply carrying it may still be on its way: let it
+            # land, so that the death comes after this step's report
+            time.sleep(1.0)
+            with open(marker, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+
+
+def phase_trainer(card, seed=0, b=4, l=4096, device="cuda",
+                  model="llama-1b"):
+    """llama_1b through the framework: ``TorchTrainer`` with one
+    ``use_gpu`` worker and ``FailureConfig(max_failures=1)``, its loop
+    (:func:`_trainer_loop`) checkpointing after step 4 and killing its
+    process after step 6 on the first attempt; the executor restarts the
+    gang, which resumes from step 4's checkpoint and runs steps 5-8. Held
+    against the same 8 steps run in this process first. Storage in a
+    ``tempfile.mkdtemp()``, removed at the end. ``device="cpu"`` and a
+    small ``model`` rehearse it on the CPU (its launch check fails
+    there)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchTrainer)
+    from ray_tpu_torch.train.trainer import _latest_checkpoint
+
+    cfg = models.get_config(model)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    # the reference: the same steps in this process
+    gen = torch.Generator(device=device).manual_seed(seed)
+    helper = TrainLoopHelper.create(
+        lambda: models.init_params(gen, cfg, device=device),
+        lambda p, bt: models.loss_and_metrics(p, bt, cfg), adamw(1e-4),
+        device=device)
+    ref_losses, ref_s = [], []
+    for step in range(TRAINER_STEPS):
+        batch = _trainer_batch(cfg, b, l, seed, step, device)
+        sync()
+        t0 = time.perf_counter()
+        ref_losses.append(helper.run_step(batch)["loss"].item())
+        ref_s.append(time.perf_counter() - t0)
+    del helper, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    storage = tempfile.mkdtemp(prefix="chip-smoke-trainer-")
+    try:
+        # f32 parameters and two AdamW moments, written once by the loop and
+        # copied once into the trial directory
+        state_bytes = 12 * cfg.num_params()
+        free = shutil.disk_usage(storage).free
+        if free < 2.2 * state_bytes:
+            raise AssertionError(
+                f"{storage}: {free / 1e9:.1f} GB free, the checkpoint needs "
+                f"2 x {state_bytes / 1e9:.1f} GB (written, then copied into "
+                f"the trial directory)")
+        scratch = os.path.join(storage, "scratch")
+        os.makedirs(scratch)
+        ray_tpu_torch.init()
+        try:
+            t_fit = time.time()
+            result = TorchTrainer(
+                _trainer_loop,
+                train_loop_config=dict(
+                    model=model, b=b, l=l, seed=seed, device=device,
+                    steps=TRAINER_STEPS, ckpt_step=TRAINER_CKPT_STEP,
+                    die_after=TRAINER_DIE_AFTER, scratch=scratch,
+                    flops_per_step=_train_flops_per_token(cfg, l) * b * l),
+                scaling_config=ScalingConfig(num_workers=1,
+                                             use_gpu=device == "cuda"),
+                run_config=RunConfig(
+                    storage_path=storage,
+                    failure_config=FailureConfig(max_failures=1))).fit()
+            fit_s = time.time() - t_fit
+        finally:
+            ray_tpu_torch.shutdown()
+        with open(os.path.join(result.path, "progress.jsonl")) as f:
+            reports = [json.loads(line) for line in f]
+        with open(os.path.join(result.path, "died")) as f:
+            died = float(f.read())
+        latest = _latest_checkpoint(result.path, 1)
+        ckpt_dirs = sorted(d for d in os.listdir(result.path)
+                           if d.startswith("checkpoint_"))
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+    steps = [r["step"] for r in reports]
+    want_steps = (list(range(1, TRAINER_DIE_AFTER + 1))
+                  + list(range(TRAINER_CKPT_STEP + 1, TRAINER_STEPS + 1)))
+    if steps != want_steps:
+        raise AssertionError(f"trainer reported steps {steps}, expected "
+                             f"{want_steps}")
+    first, second = (reports[:TRAINER_DIE_AFTER],
+                     reports[TRAINER_DIE_AFTER:])
+    ckpt_report = reports[TRAINER_CKPT_STEP - 1]
+    resumed_gap = max(abs(r["loss"] - ref_losses[r["step"] - 1])
+                      for r in second)
+    first_gap = max(abs(r["loss"] - ref_losses[r["step"] - 1])
+                    for r in first)
+    trainer_s = [r["step_s"] for r in reports]
+    # between two reports in the worker: the step, the report's round trip
+    # to the driver and the next batch, without the checkpoint's step
+    cycle = [b_["time"] - a["time"] for a, b_ in zip(first, first[1:])
+             if a["step"] != TRAINER_CKPT_STEP]
+    row = dict(
+        model=model, layers=cfg.n_layers, b=b, l=l,
+        ref_step_ms_median=float(np.median(ref_s[1:])) * 1e3,
+        trainer_step_ms_median=float(np.median(
+            [r["step_s"] for r in reports if r["step"] > 1])) * 1e3,
+        trainer_report_cycle_ms_median=float(np.median(cycle)) * 1e3,
+        telemetry_tokens_per_s=reports[-1]["telemetry_tokens_per_s"],
+        telemetry_mfu=reports[-1]["telemetry_mfu"],
+        checkpoint_bytes=ckpt_report["ckpt_bytes"],
+        snapshot_s=ckpt_report["snapshot_s"], write_s=ckpt_report["write_s"],
+        copy_into_trial_dir_s=reports[TRAINER_CKPT_STEP]["prev_report_s"],
+        death_to_first_resumed_step_s=second[0]["time"] - died,
+        restart_worker_start_s=second[0]["started"] - died,
+        restart_checkpoint_load_s=second[0]["load_s"],
+        fit_to_first_report_s=first[0]["time"] - t_fit, fit_s=fit_s,
+        resumed_loss_max_gap=resumed_gap, first_attempt_loss_max_gap=first_gap,
+        losses_reference=ref_losses,
+        losses_trainer=[r["loss"] for r in reports],
+        worker_pids=sorted({r["pid"] for r in reports}))
+    print(f"[trainer] {json.dumps(row)} on {card}", flush=True)
+    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    bad = [(r["step"], r["launches"]) for r in reports
+           if r["launches"] != want]
+    if bad:
+        raise AssertionError(f"worker launches (fwd, dkv, dq) {bad}, "
+                             f"expected {want} a step")
+    if resumed_gap > TRAINER_LOSS_TOL or first_gap > TRAINER_LOSS_TOL:
+        raise AssertionError(f"trainer losses off the in-process run by "
+                             f"{first_gap} (first attempt) / {resumed_gap} "
+                             f"(resumed), limit {TRAINER_LOSS_TOL}")
+    if not all(r["resumed"] for r in second) or any(r["resumed"]
+                                                    for r in first):
+        raise AssertionError("the restarted attempt did not see "
+                             "get_checkpoint()")
+    if len(set(row["worker_pids"])) != 2:
+        raise AssertionError(f"worker pids {row['worker_pids']}: the gang "
+                             "was not restarted in a new process")
+    want_ckpt = os.path.join(result.path, "checkpoint_000000")
+    if ckpt_dirs != ["checkpoint_000000"] or result.checkpoint is None \
+            or result.checkpoint.path != want_ckpt:
+        raise AssertionError(f"Result.checkpoint {result.checkpoint}, "
+                             f"checkpoint dirs {ckpt_dirs}: expected step "
+                             f"{TRAINER_CKPT_STEP}'s, {want_ckpt}")
+    if latest != want_ckpt:
+        raise AssertionError(f"_latest_checkpoint gave {latest}, expected "
+                             f"the complete {want_ckpt}")
+    if not all(np.isfinite(r["loss"]) for r in reports):
+        raise AssertionError("a trainer loss is not finite")
+    return row
 
 
 # kernel name patterns -> the layer they belong to, first match wins
@@ -1809,6 +2080,9 @@ def main():
     del params
     torch.cuda.empty_cache()
     counts = _phase("llama_1b training", phase_train, card)
+    torch.cuda.empty_cache()
+    # the same model and batch shape through the framework: TorchTrainer
+    _phase("llama_1b trainer", phase_trainer, card)
     torch.cuda.empty_cache()
     gemma_train = gemma2_train_config()
     counts_d256 = _phase("gemma2_9b training (8 layers)", phase_train, card,

@@ -86,6 +86,22 @@ def detect_num_gpus() -> int:
     return physical or 0
 
 
+#: dense bf16 tensor-core peaks (FLOP/s, no sparsity) by a part of the
+#: name ``torch.cuda.get_device_name`` gives: NVIDIA's data sheet for the
+#: H100 SXM part, whose name reads "H100 80GB HBM3"
+DENSE_BF16_PEAKS = (("H100 80GB HBM3", 989.4e12), ("H100 SXM", 989.4e12))
+
+
+def peak_flops(device=None) -> Optional[float]:
+    """The dense bf16 peak of ``device`` (default: the current card), or
+    None for a card the table does not know: the denominator of MFU."""
+    import torch
+
+    name = torch.cuda.get_device_name(device)
+    return next((peak for part, peak in DENSE_BF16_PEAKS if part in name),
+                None)
+
+
 def hidden_worker_env() -> Dict[str, str]:
     """The environment a worker starts with: no card visible, and
     ``torch.cuda.is_available()`` answered by NVML, so asking initialises

@@ -47,6 +47,9 @@ def _knob(name: str, type_: Callable, default: Any, doc: str,
 
 
 # -- core runtime -----------------------------------------------------------
+_knob("worker_start_timeout", float, 120.0,
+      "seconds to wait for a spawned worker to dial back before declaring "
+      "it failed", "train/backend_executor.py")
 _knob("log_to_driver", _bool, True,
       "stream worker stdout/stderr lines to the driver's console",
       "core/runtime.py")

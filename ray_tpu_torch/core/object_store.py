@@ -720,25 +720,26 @@ class StoreClient:
 
     @staticmethod
     def cleanup_session(session: str) -> None:
-        try:
-            from ray_tpu_torch._native import NativeArena
-
-            NativeArena.destroy(session)
-        except Exception:
-            pass
+        """Remove every shared-memory name of ``session``: its objects
+        (``rtpu-<session>-*``), its arena (``rtpu-arena-<session>``) and
+        its compiled-DAG channels (``rtpu-chan-<session>-*``), and its
+        spill directory. The arena is unlinked by name here as well, so
+        a native library that failed to load cannot leave it behind."""
         import shutil
 
         shutil.rmtree(_spill_dir(session), ignore_errors=True)
-        prefix = f"rtpu-{session}-"
         try:
-            for name in os.listdir(_SHM_DIR):
-                if name.startswith(prefix):
-                    try:
-                        os.unlink(os.path.join(_SHM_DIR, name))
-                    except OSError:
-                        pass
+            names = os.listdir(_SHM_DIR)
         except OSError:
-            pass
+            return
+        for name in names:
+            if (name.startswith(f"rtpu-{session}-")
+                    or name == f"rtpu-arena-{session}"
+                    or name.startswith(f"rtpu-chan-{session}-")):
+                try:
+                    os.unlink(os.path.join(_SHM_DIR, name))
+                except OSError:
+                    pass
 
 
 class IncomingObject:

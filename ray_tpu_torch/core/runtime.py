@@ -562,6 +562,7 @@ class DriverRuntime:
         self.pool_cap = max(4, cpus)
         self.pool_hard_cap = max(64, cpus * 8)
         self._spawning = 0  # spawns decided but not yet registered
+        self._spawns_in_flight = 0  # _spawn_worker calls not yet returned
         self._shutdown = False
 
         # cluster-mode adapter (ray_tpu_torch/cluster/adapter.py); None single-node
@@ -922,6 +923,17 @@ class DriverRuntime:
                 return None
 
     def _spawn_worker(self, kind: str) -> _WorkerState:
+        with self.lock:
+            if self._shutdown:
+                raise RuntimeError("the runtime is shut down")
+            self._spawns_in_flight += 1
+        try:
+            return self._spawn_worker_process(kind)
+        finally:
+            with self.lock:
+                self._spawns_in_flight -= 1
+
+    def _spawn_worker_process(self, kind: str) -> _WorkerState:
         import subprocess
         import sys
 
@@ -2703,6 +2715,9 @@ class DriverRuntime:
     def _spawn_pool_async(self):
         try:
             self._spawn_worker("pool")
+        except RuntimeError:
+            if not self._shutdown:
+                raise
         finally:
             with self.lock:
                 self._spawning -= 1
@@ -3148,25 +3163,23 @@ class DriverRuntime:
             self._memory_monitor.stop()
         with self.lock:
             self._shutdown = True
-            workers = list(self.workers.values())
-        for ws in workers:
-            try:
-                ws.send(("shutdown",))
-            except Exception:
-                pass
-        deadline = time.monotonic() + 2.0
-        for ws in workers:
-            t = max(0.05, deadline - time.monotonic())
-            try:
-                ws.proc.wait(t)
-            except Exception:
-                ws.proc.terminate()
-        for ws in workers:
-            if ws.proc.poll() is None:
-                try:
-                    ws.proc.wait(0.5)
-                except Exception:
-                    ws.proc.kill()
+        # Stop every worker, those whose spawn was still in flight too:
+        # a worker that outlives the sweep below can reopen the session's
+        # arena by name, and so create it anew.
+        workers: List[_WorkerState] = []
+        deadline = time.monotonic() + 10.0
+        while True:
+            with self.lock:
+                fresh = [ws for ws in self.workers.values()
+                         if ws not in workers]
+                in_flight = self._spawns_in_flight
+            if fresh:
+                self._stop_workers(fresh)
+                workers.extend(fresh)
+            elif in_flight == 0 or time.monotonic() > deadline:
+                break
+            else:
+                time.sleep(0.01)
         for ws in workers:
             # reclaim the native engines' threads (never from their own
             # drain thread — this is the driver's shutdown caller)
@@ -3187,16 +3200,39 @@ class DriverRuntime:
             os.unlink(self._sock_addr)
         except OSError:
             pass
+        # the arena, the object segments and the compiled-DAG channels of
+        # this session (rings a leaked CompiledDAG left behind)
         StoreClient.cleanup_session(self.session)
-        # compiled-DAG channels of this session (rings a leaked/undeleted
-        # CompiledDAG left behind — e.g. a handle cache never torn down)
-        import glob as _glob
 
-        for p in _glob.glob(f"/dev/shm/rtpu-chan-{self.session}-*"):
+    @staticmethod
+    def _stop_workers(workers: List[_WorkerState]) -> None:
+        """Ask each worker to exit; terminate, then kill, the ones that
+        do not within 2.5 s; and reap every one, killed ones included."""
+        for ws in workers:
             try:
-                os.unlink(p)
-            except OSError:
+                ws.send(("shutdown",))
+            except Exception:
                 pass
+        deadline = time.monotonic() + 2.0
+        for ws in workers:
+            t = max(0.05, deadline - time.monotonic())
+            try:
+                ws.proc.wait(t)
+            except Exception:
+                ws.proc.terminate()
+        for ws in workers:
+            if ws.proc.poll() is None:
+                try:
+                    ws.proc.wait(0.5)
+                except Exception:
+                    ws.proc.kill()
+        for ws in workers:
+            try:
+                ws.proc.wait(5.0)
+            except Exception:
+                logger.warning("worker %s (pid %s) outlived SIGKILL",
+                               ws.worker_id.hex()[:8],
+                               getattr(ws.proc, "pid", None))
 
 
 # ----------------------------------------------------------------------

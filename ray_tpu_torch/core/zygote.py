@@ -83,8 +83,11 @@ def zygote_main() -> None:
             continue
         chunk = os.read(stdin_fd, 65536)
         if not chunk:
-            # driver closed our stdin: shut down; children keep running
-            # (the driver owns their lifecycle via signals)
+            # driver closed our stdin: its runtime shut down (or died)
+            # after stopping every worker it knew of; a child forked for a
+            # spawn that raced the shutdown would reopen, and so re-create,
+            # the session's arena: kill and reap what is left
+            _kill_children(children)
             return
         buf += chunk
         while b"\n" in buf:
@@ -100,6 +103,20 @@ def zygote_main() -> None:
                 _child_exec(worker_mod, req)  # never returns
             children[pid] = req["wid"]
             emit({"event": "spawned", "wid": req["wid"], "pid": pid})
+
+
+def _kill_children(children: dict) -> None:
+    for pid in list(children):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for pid in list(children):
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+        children.pop(pid, None)
 
 
 def _child_exec(worker_mod, req: dict) -> None:

@@ -4,7 +4,8 @@ Each ``ops/csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``ray_tpu_torch/_build/lib<name>-<hash>.so``,
 keyed on a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so a fresh checkout builds at first use and an edited source or
-header rebuilds. Libraries are loaded with ctypes.
+header rebuilds; each build is a compile event of the step telemetry
+(``train/telemetry.py``). Libraries are loaded with ctypes.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -50,6 +52,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n) for n in names}
     procs = {}
+    t0 = time.perf_counter()
     for name, so in targets.items():
         if so.exists():
             continue
@@ -66,6 +69,10 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             failed.append(f"{name}.cu:\n{out}")
             continue
         os.replace(tmp, so)
+        # a build before a first use is the port's compile event
+        from ray_tpu_torch.train import telemetry
+
+        telemetry.record_compile(time.perf_counter() - t0)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return targets

@@ -421,10 +421,21 @@ class RegisteredGraph:
                     out, flops = self._fn(*s_args, **s_kwargs), None
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                reserved = torch.cuda.memory_stats(dev).get(
-                    "reserved_bytes.all.current", 0)
-                outputs = self._fn(*s_args, **s_kwargs)
+            # a CUDAGraph that the garbage collector frees resets its
+            # executable, which is not permitted while a stream captures
+            # and invalidates the capture: collect before, not during
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    reserved = torch.cuda.memory_stats(dev).get(
+                        "reserved_bytes.all.current", 0)
+                    outputs = self._fn(*s_args, **s_kwargs)
+            finally:
+                if collecting:
+                    gc.enable()
             pool_bytes = torch.cuda.memory_stats(dev).get(
                 "reserved_bytes.all.current", 0) - reserved
         torch.cuda.synchronize(dev)
@@ -432,13 +443,19 @@ class RegisteredGraph:
                       if s is None and isinstance(x, torch.Tensor)]
         self._graphs[key] = _Capture(graph, tree, statics, outputs,
                                      fixed_ptrs)
+        seconds = time.perf_counter() - t0
         if accounting:
             _registry.record_compile(
                 self._name, self._component,
                 sig=abstract_signature(args, kwargs),
-                seconds=time.perf_counter() - t0, donate=self._fixed,
+                seconds=seconds, donate=self._fixed,
                 steps=self._steps, cost={"flops": flops},
                 memory={"graph_pool_bytes": int(pool_bytes)})
+        # a capture before a first replay is a compile event of the step
+        # telemetry too
+        from ray_tpu_torch.train import telemetry
+
+        telemetry.record_compile(seconds)
         return out
 
     def _replay(self, cap: _Capture, leaves):

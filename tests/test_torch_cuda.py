@@ -660,6 +660,44 @@ def test_replay_refuses_a_moved_fixed_argument(cuda):
     assert torch.equal(prog(w.clone() * 3, x), x * 3)
 
 
+def test_capture_survives_a_graph_the_collector_frees(cuda):
+    """A captured program left in a reference cycle is freed by the garbage
+    collector, and freeing its graph resets it, which is not permitted
+    while another capture runs: a capture collects what is garbage before
+    it begins. The program captured here runs a collection inside its
+    capture, as an allocation can trigger one; automatic collection is
+    off in this test until then, so the cycle is still there."""
+    import gc
+
+    class Holder:
+        pass
+
+    calls = []
+
+    def collects_when_captured(x):
+        calls.append(1)
+        if len(calls) == 2:          # the warm-up run, then the capture
+            gc.collect()
+        return x + 1
+
+    gc.disable()
+    try:
+        old = Holder()
+        old.cycle = old
+        old.prog = device_plane.registered_graph(lambda x: x * 2,
+                                                 name="test::garbage")
+        old.prog(torch.ones(8, device=cuda))
+        assert old.prog.captures == 1
+        del old
+        prog = device_plane.registered_graph(collects_when_captured,
+                                             name="test::after_garbage")
+        out = prog(torch.ones(8, device=cuda))
+        assert len(calls) == 2 and prog.captures == 1
+        assert torch.equal(out, torch.full((8,), 2.0, device=cuda))
+    finally:
+        gc.enable()
+
+
 def test_failed_capture_raises_without_a_fallback(cuda):
     """A program that waits for the device cannot be captured: the call
     raises (last in this file: a failed capture may leave the context
@@ -743,3 +781,52 @@ def test_gpu_actor_that_opts_in_reaches_the_card(runtime):
     assert name == torch.cuda.get_device_name(0) and total == 1024.0
     assert doubled.device.type == "cpu" and float(doubled.sum()) == 2048.0
     rt.kill(a)
+
+
+def test_trainer_on_the_card_launches_the_kernels_in_its_worker(runtime,
+                                                                 tmp_path):
+    """``TorchTrainer`` with one ``use_gpu`` worker: the loop runs in the
+    worker's own process on its card, and its steps go through the three
+    kernels there (remat off: one forward, one dK/dV and one dQ launch a
+    layer a step)."""
+    import json
+    import os
+
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    def loop():
+        import os
+
+        import torch
+
+        from ray_tpu_torch import models, train
+        from ray_tpu_torch.ops import flash_cuda
+        from ray_tpu_torch.train import TrainLoopHelper, adamw
+
+        cfg = models.llama_debug().replace(head_dim=64)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        helper = TrainLoopHelper.create(
+            lambda: models.init_params(gen, cfg, device="cuda"),
+            lambda p, b: models.loss_and_metrics(p, b, cfg), adamw(1e-3))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 129), generator=gen,
+                               device="cuda")
+        for _ in range(2):
+            flash_cuda.launches = flash_cuda.launches_dkv = 0
+            flash_cuda.launches_dq = 0
+            m = helper.run_step({"tokens": tokens})
+            train.report({"loss": m["loss"].item(), "pid": os.getpid(),
+                          "device": str(helper.device),
+                          "launches": [flash_cuda.launches,
+                                       flash_cuda.launches_dkv,
+                                       flash_cuda.launches_dq]})
+
+    result = TorchTrainer(
+        loop, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    with open(os.path.join(result.path, "progress.jsonl")) as f:
+        reports = [json.loads(line) for line in f]
+    assert len(reports) == 2
+    for r in reports:
+        assert r["pid"] != os.getpid() and r["device"] == "cuda"
+        assert r["launches"] == [2, 2, 2]
+        assert np.isfinite(r["loss"])

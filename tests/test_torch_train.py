@@ -5,6 +5,12 @@ and grad-norm trajectory and final parameters against the JAX
 dim 256), with the same weights carried across by ``params_from_jax``
 (float32 throughout).
 
+The helper's own checkpoints and profiling run on the port alone: a
+bf16 / f32 / int64 round trip through ``save_pytree`` / ``load_pytree``
+bit for bit, an async snapshot that later in-place steps do not reach, a
+restore that continues bit for bit, ``profile_steps`` applying exactly n
+steps, and the data-parallel batch check.
+
 Tolerances: a single optimizer step agrees to 1e-6 (the same float32
 update, different operation order). Over 5 steps the losses agree to 5e-5
 and the grad norms to 1e-4 relative; the parameters agree to 5e-5, 5% of
@@ -12,6 +18,9 @@ one step's size at lr 1e-3: Adam divides each grad by its running RMS, so
 summation-order differences in small grads move an update by a fraction of
 the learning rate.
 """
+
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -190,3 +199,135 @@ def test_helper_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
         TrainLoopHelper.create(lambda: built.append(1), lambda p, b: None,
                                adamw(LR))
     assert not built
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of the train state, profiling, the data-parallel batch check
+# ---------------------------------------------------------------------------
+
+def _port_helper(seed=0, eps=1e-8):
+    cfg = TM.llama_debug().replace(dtype="float32", param_dtype="float32")
+    helper = TrainLoopHelper.create(
+        lambda: TM.init_params(torch.Generator().manual_seed(seed), cfg,
+                               device="cpu"),
+        lambda p, b: TM.loss_and_metrics(p, b, cfg), adamw(LR, eps=eps),
+        device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 17),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    return helper, {"tokens": tokens}
+
+
+def test_save_and_load_pytree_round_trip_bitwise(tmp_path):
+    """bf16, f32 and int64 leaves, a 0-d one, and the structure around them
+    (a list, a tuple, Python scalars) come back bit for bit; ``device=``
+    places the leaves."""
+    from ray_tpu_torch.train import load_pytree, save_pytree
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(5, 3, generator=g).to(torch.bfloat16),
+            "b": torch.randn(7, generator=g),
+            "ids": torch.randint(-(1 << 40), 1 << 40, (4,), generator=g),
+            "step": torch.tensor(3),
+            "groups": [{"lr": 1e-3, "params": [0, 1]}],
+            "pair": (torch.ones(2, dtype=torch.float32), None, "x")}
+    save_pytree(tree, str(tmp_path))
+    got = load_pytree(str(tmp_path), device="cpu")
+    for key in ("w", "b", "ids", "step"):
+        assert got[key].dtype == tree[key].dtype
+        assert got[key].shape == tree[key].shape
+        assert torch.equal(got[key].view(torch.uint8)
+                           if got[key].ndim else got[key],
+                           tree[key].view(torch.uint8)
+                           if tree[key].ndim else tree[key]), key
+    assert got["groups"] == tree["groups"]
+    assert torch.equal(got["pair"][0], tree["pair"][0])
+    assert got["pair"][1:] == (None, "x") and isinstance(got["pair"], tuple)
+    assert sorted(os.listdir(tmp_path)) == [
+        ".metadata.json", "state_pytree.npz", "state_pytree_struct.pkl"]
+
+
+def test_async_snapshot_is_immune_to_later_steps(tmp_path):
+    """On the CPU ``.cpu()`` is the same storage AdamW updates in place: the
+    snapshot taken by ``save_checkpoint_async`` must be a copy, so the
+    steps run after it returns (before its write lands) change nothing."""
+    from ray_tpu_torch.train import load_pytree
+
+    helper, batch = _port_helper()
+    helper.run_step(batch)
+    want = {k: v.detach().clone() for k, v in _leaves(helper.state["params"])}
+    pending = helper.save_checkpoint_async(str(tmp_path))
+    for _ in range(2):
+        helper.run_step(batch)
+    pending.wait()
+    got = dict(_leaves(load_pytree(str(tmp_path))["params"]))
+    moved = [k for k, v in _leaves(helper.state["params"])
+             if not torch.equal(v.detach(), want[k])]
+    assert moved                                   # the steps did update
+    for key, t in got.items():
+        assert torch.equal(t, want[key]), key
+
+
+def test_checkpoint_restore_continues_bitwise(tmp_path):
+    """Save after 2 steps (parameters, AdamW moments and steps), restore into
+    a fresh helper, run 2 more: the same losses and parameters, bit for
+    bit, as 4 uninterrupted steps. Without the optimizer's state it
+    differs (Adam's bias correction restarts)."""
+    from ray_tpu_torch.train import load_pytree
+
+    ref, batch = _port_helper()
+    ref_losses = [ref.run_step(batch)["loss"].item() for _ in range(4)]
+    first, _ = _port_helper()
+    for _ in range(2):
+        first.run_step(batch)
+    first.save_checkpoint_async(str(tmp_path)).wait()
+    tree = load_pytree(str(tmp_path))
+    assert int(tree["step"]) == 2
+    assert set(tree["opt_state"]["state"][0]) == {"step", "exp_avg",
+                                                  "exp_avg_sq"}
+    resumed, _ = _port_helper(seed=5)                 # other weights
+    resumed.restore(tree)
+    losses = [resumed.run_step(batch)["loss"].item() for _ in range(2)]
+    assert losses == ref_losses[2:]
+    for (key, a), (_, b) in zip(_leaves(resumed.state["params"]),
+                                _leaves(ref.state["params"])):
+        assert torch.equal(a.detach(), b.detach()), key
+    bare, _ = _port_helper(seed=5)
+    with torch.no_grad():
+        for (_, t), (_, src) in zip(_leaves(bare.state["params"]),
+                                    _leaves(tree["params"])):
+            t.copy_(src)
+    assert bare.run_step(batch)["loss"].item() == ref_losses[2]
+    assert bare.run_step(batch)["loss"].item() != ref_losses[3]
+
+
+def test_profile_steps_writes_a_trace_and_runs_n_steps(tmp_path,
+                                                       monkeypatch):
+    helper, batch = _port_helper()
+    helper.profile_steps(batch, 2, str(tmp_path / "trace"))
+    assert int(helper.state["step"]) == 2
+    (trace,) = os.listdir(tmp_path / "trace")
+    with open(tmp_path / "trace" / trace) as f:
+        assert "traceEvents" in json.load(f)
+    # a capture that fails before the steps: they run once, unprofiled
+    monkeypatch.setattr(torch.profiler, "profile", _failing_profile)
+    with pytest.warns(UserWarning, match="ran unprofiled"):
+        helper.profile_steps(batch, 3, str(tmp_path / "trace"))
+    assert int(helper.state["step"]) == 5
+
+
+def _failing_profile(*args, **kwargs):
+    raise RuntimeError("no profiler here")
+
+
+class _TwoWayMesh:
+    """A mesh with dp=2, to check the batch rule without a process group."""
+    mesh_dim_names = ("dcn", "dp", "fsdp")
+    shape = (1, 2, 1)
+
+
+def test_batch_that_dp_does_not_divide_raises():
+    helper, _ = _port_helper()
+    helper.mesh = _TwoWayMesh()
+    with pytest.raises(ValueError, match="does not divide"):
+        helper.run_step({"tokens": torch.zeros((3, 9), dtype=torch.int64)})
+    assert int(helper.state["step"]) == 0
