@@ -236,6 +236,11 @@ _knob("serve_load_report_interval_s", float, 0.5,
       "blocks free/total, in-flight requests) when its deployment "
       "exposes load_state(); <= 0 disables the push loop",
       "serve/replica.py")
+_knob("serve_model_budget_bytes", int, 0,
+      "per-replica resident-weight budget for model multiplexing: the "
+      "ModelRegistry LRU-evicts unpinned models past this many bytes of "
+      "materialized params (in-flight requests pin their model); 0 = "
+      "unbounded", "serve/multiplex.py")
 _knob("serve_model_route_weight", float, 4.0,
       "routing-score penalty a DeploymentHandle adds to replicas that "
       "do NOT advertise the request's model_id as resident (a swap-in "
@@ -249,6 +254,10 @@ _knob("serve_prefix_affinity_margin", float, 6.0,
       "LOSE to the p2c winner and still be picked (beyond it the "
       "replica is overloaded and affinity yields to load)",
       "serve/handle.py")
+_knob("serve_prefix_digest_top", int, 8,
+      "top-N hottest prefix-trie roots (by reused tokens) a replica "
+      "publishes in its load report for affinity routing",
+      "serve/llm.py")
 _knob("spec_k", int, 4,
       "draft tokens proposed per speculative-decoding round (the "
       "target verifies k+1 positions in one batched step)",

@@ -20,8 +20,9 @@ decode and verify steps with the KV-block copy, gather and scatter.
   device, so the engine can capture each as a CUDA graph.
 - Training differentiates :func:`loss_and_metrics` with autograd. Under
   ``config.remat`` each layer runs under ``torch.utils.checkpoint`` and is
-  recomputed in the backward pass (the flash forward kernel runs twice per
-  layer and step).
+  recomputed in the backward pass: with ``remat_policy="full"`` the flash
+  forward kernel runs twice a layer and step, with ``"save_attn"`` once
+  (its out and lse are saved).
 """
 
 from __future__ import annotations
@@ -30,13 +31,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch import config as _knobs
 from ray_tpu_torch._device import Device, resolve_device
 from ray_tpu_torch.models.config import TransformerConfig
-from ray_tpu_torch.ops.attention import (NEG_INF, _repeat_kv, _softcap_scores,
-                                         flash_attention, naive_attention)
+from ray_tpu_torch.ops.attention import (NEG_INF, SAVE_ATTN_OP, _repeat_kv,
+                                         _softcap_scores, flash_attention,
+                                         naive_attention)
 from ray_tpu_torch.ops.layers import (apply_rotary, layer_norm, rms_norm,
                                       rotary_embedding)
 
@@ -248,21 +251,36 @@ def _layer(x, lp, c: TransformerConfig, cos, sin, window: int, q_block: int,
     return _decode_mlp(x, lp, c, dt)
 
 
+def _save_attn_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing: save the attention forward's out and lse,
+    recompute everything else (norms, projections, rotary, MLP)."""
+    if op is SAVE_ATTN_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_attn_context():
+    return create_selective_checkpoint_contexts(_save_attn_policy)
+
+
 def _remat_wrap(layer_fn: Callable, c: TransformerConfig) -> Callable:
     """Apply the config's rematerialization choice to the layer body:
     ``remat_policy="full"`` saves only the layer's inputs and recomputes
-    the layer in the backward pass. Outside autograd it changes nothing."""
+    the layer in the backward pass; ``"save_attn"`` also keeps the
+    attention forward's out and lse (the reference saves the named
+    ``attn_out``; the port's backward kernels read the lse too), so the
+    recompute rebuilds q, k and v but does not run attention again: one
+    forward attention a layer a step instead of two. Outside autograd it
+    changes nothing."""
     if not c.remat:
         return layer_fn
+    kw = ({"context_fn": _save_attn_context}
+          if c.remat_policy == "save_attn" else {})
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return layer_fn(*args)
-        if c.remat_policy == "save_attn":
-            raise NotImplementedError(
-                "remat_policy='save_attn' is not ported yet; use 'full' or "
-                "remat=False")
-        return checkpoint(layer_fn, *args, use_reentrant=False)
+        return checkpoint(layer_fn, *args, use_reentrant=False, **kw)
     return wrapped
 
 

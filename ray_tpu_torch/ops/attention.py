@@ -13,12 +13,18 @@ autograd) and nothing else; the blockwise and naive versions here serve CPU
 tensors (the tests) and are the kernels' plain reference. Both
 differentiable paths keep O(L) residuals: q, k and v at their native
 kv-head count, out and lse, as the reference's ``_mha`` custom VJP does.
+
+Both forwards go through one registered operator,
+``torch.ops.ray_tpu_torch.attention_fwd`` (:func:`attention_fwd`, returning
+out and lse), so that a selective-checkpoint policy can name it: under
+``remat_policy="save_attn"`` the layer's recompute takes its saved out and
+lse instead of running attention again (:data:`SAVE_ATTN_OP`).
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -270,6 +276,46 @@ def _mha_bwd_gqa(q, k, v, out, lse, dout, causal, scale, q_block, kv_block,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+#: calls of :func:`attention_fwd` (each one a forward attention: a launch
+#: of kernel 1 on the card, the plain version on the CPU); callers reset it
+fwd_calls = 0
+
+
+@torch.library.custom_op("ray_tpu_torch::attention_fwd", mutates_args=())
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float, window: Optional[int],
+                  softcap: float, q_block: int,
+                  kv_block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention forward as one operator: ``(out, lse)``. With
+    ``q_block == 0`` it is the kernel wrapper's
+    (:func:`~ray_tpu_torch.ops.flash_cuda.flash_attention_fwd`: the kernel
+    on CUDA tensors, its plain version on CPU ones); otherwise the blockwise
+    plain version on those tiles (CPU tensors)."""
+    global fwd_calls
+    fwd_calls += 1
+    if q_block == 0:
+        from ray_tpu_torch.ops.flash_cuda import flash_attention_fwd
+
+        return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                   window=window, softcap=softcap)
+    h = q.shape[2]
+    return _mha_fwd_blockwise(q, _repeat_kv(k, h), _repeat_kv(v, h), causal,
+                              scale, q_block, kv_block, window,
+                              softcap=softcap)
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(q, k, v, causal, scale, window, softcap, q_block,
+                        kv_block):
+    b, lq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, lq), dtype=torch.float32))
+
+
+#: the operator a ``save_attn`` checkpoint policy must save
+SAVE_ATTN_OP = torch.ops.ray_tpu_torch.attention_fwd.default
+
+
 def _grads_needed(ctx, grads):
     """(dq, dk, dv) as autograd wants them: None where no grad was asked."""
     return tuple(g if need else None
@@ -284,10 +330,8 @@ class _BlockwiseAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_block, kv_block, window,
                 softcap):
-        h = q.shape[2]
-        out, lse = _mha_fwd_blockwise(q, _repeat_kv(k, h), _repeat_kv(v, h),
-                                      causal, scale, q_block, kv_block,
-                                      window, softcap=softcap)
+        out, lse = attention_fwd(q, k, v, causal, scale, window, softcap,
+                                 q_block, kv_block)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, q_block, kv_block, window, softcap)
         return out
@@ -309,10 +353,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, softcap):
-        from ray_tpu_torch.ops.flash_cuda import flash_attention_fwd
-
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                       window=window, softcap=softcap)
+        out, lse = attention_fwd(q, k, v, causal, scale, window, softcap,
+                                 0, 0)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = dict(causal=causal, scale=scale, window=window,
                         softcap=softcap)

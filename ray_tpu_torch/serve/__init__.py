@@ -6,10 +6,12 @@ power-of-two-choices routing → replica actor call; plus dynamic batching,
 model composition, autoscaling, and an HTTP proxy. LLM serving on PyTorch:
 ``LLMDeployment`` runs the paged continuous-batching engine (with KV export
 and adoption for disaggregated serving) on a replica, on the card or the
-CPU; speculative decoding runs over the same engine.
+CPU; ``SpeculativeLLMDeployment`` decodes speculatively over the same
+engine, and ``MultiplexedLLMDeployment`` serves many models (full weight
+sets and LoRA-style deltas) from one replica through a ``ModelRegistry``.
 
 Not ported yet (ROADMAP.md queue 1): compiled deployments, KV transfer and
-disaggregation, the gRPC proxy, the multiplexed deployments.
+disaggregation, the gRPC proxy.
 """
 
 from ray_tpu_torch.serve.admission import (AdmissionController,
@@ -36,7 +38,10 @@ from ray_tpu_torch.serve.deployment import (
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.kv_cache import BlockPool, KVCacheError, PrefixCache
 from ray_tpu_torch.serve.llm import KVExport, LLMDeployment, LLMEngine
-from ray_tpu_torch.serve.multiplex import SpeculativeLLMEngine
+from ray_tpu_torch.serve.multiplex import (ModelRegistry,
+                                           MultiplexedLLMDeployment,
+                                           SpeculativeLLMDeployment,
+                                           SpeculativeLLMEngine)
 from ray_tpu_torch.serve.proxy import HTTPProxy
 
 __all__ = [
@@ -57,6 +62,9 @@ __all__ = [
     "LLMDeployment",
     "LLMEngine",
     "KVExport",
+    "ModelRegistry",
+    "MultiplexedLLMDeployment",
+    "SpeculativeLLMDeployment",
     "SpeculativeLLMEngine",
     "BlockPool",
     "KVCacheError",

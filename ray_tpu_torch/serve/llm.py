@@ -32,6 +32,13 @@ and streams its tokens (the colocated role).
   emits a :class:`KVExport` (the first token and the prompt's KV blocks)
   in place of the stream, and :meth:`LLMEngine.adopt` admits such a
   request on another engine.
+- Telemetry, the reference's names: TTFT and TPOT histograms observed at
+  each emit; KV blocks free and used, the pool's in-flight, queued and
+  used fraction sampled after each step; the prefix cache's hit, miss and
+  hit-token counters mirrored from the trie by deltas; admission sheds by
+  reason; the step program's achieved FLOP/s (its FLOPs over the step's
+  wall time, which the logits' copy to the host bounds: nothing syncs to
+  measure it), and a ``serve::step`` span when tracing is on.
 """
 
 from __future__ import annotations
@@ -256,6 +263,47 @@ class LLMEngine:
                       "max_concurrent": 0, "requests": 0,
                       "prefix_hit_tokens": 0, "deadline_drops": 0,
                       "exported": 0, "adopted": 0, "migrated_out": 0}
+        self._metrics = self._init_metrics()
+        self._mirror_prev: Dict[str, int] = {}
+
+    @staticmethod
+    def _init_metrics() -> Dict[str, Any]:
+        """The serving tier's built-in metrics, resolved once here so the
+        step loop never looks the registry up."""
+        from ray_tpu_torch.util import metric_defs as md
+
+        return {
+            "kv_free": md.get("rtpu_serve_kv_blocks_free"),
+            "kv_used": md.get("rtpu_serve_kv_blocks_used"),
+            "hits": md.get("rtpu_serve_prefix_cache_hits_total"),
+            "misses": md.get("rtpu_serve_prefix_cache_misses_total"),
+            "hit_tokens": md.get("rtpu_serve_prefix_hit_tokens_total"),
+            "sheds": md.get("rtpu_serve_admission_sheds_total"),
+            "ttft": md.get("rtpu_serve_ttft_seconds"),
+            "tpot": md.get("rtpu_serve_tpot_seconds"),
+            "pool_inflight": md.get("rtpu_serve_pool_inflight"),
+            "pool_queued": md.get("rtpu_serve_pool_queued"),
+            "pool_kv_used_frac": md.get("rtpu_serve_pool_kv_used_fraction"),
+            "achieved_flops": md.get("rtpu_device_achieved_flops_per_s"),
+        }
+
+    def _admit_or_shed(self, n_prompt: int,
+                       deadline_s: Optional[float]) -> None:
+        """The SLO gate, before a request joins the queue: a doomed request
+        gets a fast ``RequestShedError`` (counted by reason), not a slow
+        timeout."""
+        with self._lock:
+            queued = len(self._pending)
+            queued_tokens = sum(len(r.prompt) for r in self._pending)
+            free_slots = sum(r is None for r in self._slots)
+        try:
+            self.admission.check_admit(
+                n_prompt, queued, queued_tokens, self.prefill_chunk,
+                free_slots, self.max_slots - free_slots,
+                deadline_s=deadline_s)
+        except RequestShedError as e:
+            self._metrics["sheds"].inc(tags={"reason": e.reason})
+            raise
 
     def _program(self, fn, name: str, fixed=()):
         return registered_graph(fn, name=name, component="serve",
@@ -332,15 +380,7 @@ class LLMEngine:
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        # SLO gate BEFORE the request joins the queue: a doomed request
-        # gets a fast RequestShedError, not a slow timeout
-        with self._lock:
-            queued = len(self._pending)
-            queued_tokens = sum(len(r.prompt) for r in self._pending)
-            free_slots = sum(r is None for r in self._slots)
-        self.admission.check_admit(
-            len(prompt), queued, queued_tokens, self.prefill_chunk,
-            free_slots, self.max_slots - free_slots, deadline_s=deadline_s)
+        self._admit_or_shed(len(prompt), deadline_s)
         now = time.monotonic()
         req = _Request(prompt, max_new_tokens, emit, eos=eos, submit_ts=now,
                        deadline=(now + deadline_s
@@ -405,13 +445,7 @@ class LLMEngine:
                 f"{self.pool.num_blocks} total")
         # decode-side admission: no prefill cost (the blocks arrive
         # computed), so only the queue / TPOT gates carry signal
-        with self._lock:
-            queued = len(self._pending)
-            queued_tokens = sum(len(r.prompt) for r in self._pending)
-            free_slots = sum(r is None for r in self._slots)
-        self.admission.check_admit(
-            1, queued, queued_tokens, self.prefill_chunk, free_slots,
-            self.max_slots - free_slots, deadline_s=deadline_s)
+        self._admit_or_shed(1, deadline_s)
         now = time.monotonic()
         req = _Request(prompt, max_new_tokens, emit, eos=eos, submit_ts=now,
                        deadline=(now + deadline_s
@@ -693,6 +727,7 @@ class LLMEngine:
         are waiting."""
         active_now, have_pending = self._sweep_and_admit()
         if active_now == 0:
+            self._sample_gauges()
             return have_pending
         self._ensure_params()
         t0 = time.perf_counter()
@@ -732,17 +767,29 @@ class LLMEngine:
                 req.emit(None)
                 self._slots[i] = None
         self.stats["steps"] += 1
+        self._sample_gauges()
         return True
 
     def _note_device_step(self, dt: float) -> None:
         """Achieved FLOP/s of this engine's step program: its FLOPs a call
         (device plane) over the step's wall time, which the logits' copy
-        to the host bounds."""
+        to the host bounds. The step is also a ``serve::step`` span when
+        tracing is on."""
+        from ray_tpu_torch.util import tracing
+
         program = ("serve::decode_step_paged" if self.paged
                    else "serve::decode_step")
         flops = device_plane.program_flops_per_step(program)
         if flops and dt > 0:
-            self.stats["flops_per_s"] = round(flops / dt, 1)
+            fps = flops / dt
+            self.stats["flops_per_s"] = round(fps, 1)
+            self._metrics["achieved_flops"].set(fps,
+                                                tags={"program": program})
+        if tracing.tracing_enabled():
+            end = time.time_ns()
+            tracing.record_span(
+                "serve::step", end - int(dt * 1e9), end,
+                {"program": program, **({"flops": flops} if flops else {})})
 
     def _emit_prefill_export(self, i: int, req: _Request, tok: int) -> None:
         """Export INSTEAD of streaming: gather the prompt's blocks off the
@@ -821,11 +868,42 @@ class LLMEngine:
         return self._out.fetch(logits), nvalid
 
     def _observe_emit(self, req: _Request, now: float) -> None:
+        m = self._metrics
         if req.last_emit_ts is None:
-            self.admission.observe_ttft(now - req.submit_ts)
+            ttft = now - req.submit_ts
+            self.admission.observe_ttft(ttft)
+            m["ttft"].observe(ttft)
         else:
-            self.admission.observe_tpot(now - req.last_emit_ts)
+            tpot = now - req.last_emit_ts
+            self.admission.observe_tpot(tpot)
+            m["tpot"].observe(tpot)
         req.last_emit_ts = now
+
+    _mirrored = ("hits", "misses", "hit_tokens")
+
+    def _sample_gauges(self) -> None:
+        """The pool's gauges, and the prefix counters moved by what the
+        trie counted since the last sample."""
+        m = self._metrics
+        role = {"role": self.role}
+        with self._lock:
+            m["pool_inflight"].set(sum(r is not None for r in self._slots),
+                                   tags=role)
+            m["pool_queued"].set(len(self._pending), tags=role)
+        if self.pool is not None:
+            m["kv_free"].set(self.pool.free_count)
+            m["kv_used"].set(self.pool.used_count)
+            m["pool_kv_used_frac"].set(
+                self.pool.used_count / max(self.pool.num_blocks, 1),
+                tags=role)
+        if self.prefix is not None:
+            cur = self.prefix.stats()
+            prev = self._mirror_prev
+            for k in self._mirrored:
+                d = cur[k] - prev.get(k, 0)
+                if d > 0:
+                    m[k].inc(d)
+            self._mirror_prev = {k: cur[k] for k in self._mirrored}
 
     def _sample(self, logits: np.ndarray) -> int:
         if self.temperature <= 0.0:
@@ -857,6 +935,10 @@ class LLMEngine:
                            kv_claimable=self.pool.free_count)
             if self.prefix is not None:
                 out["prefix"] = self.prefix.stats()
+                # prefix affinity: the hottest trie roots by reuse, which
+                # a load report publishes for the handle's routing
+                out["prefix_digest"] = self.prefix.digest(
+                    int(_knobs.get("serve_prefix_digest_top")))
                 # claimable = free + evictable-from-trie: the capacity
                 # signal (a warm engine's raw free count trends to ~0
                 # because the trie retains every finished prompt)
@@ -1163,9 +1245,13 @@ class LLMDeployment:
             raise RuntimeError(f"llm decode loop error: {self._error!r}")
 
     def close(self) -> None:
-        """Stop the step loop."""
+        """Stop the step loop and wait for it to leave its step (not from
+        the loop thread itself), so that the engine is idle afterwards."""
         self._stop = True
         self._wake.set()
+        if threading.current_thread() is not self._thread:
+            self._thread.join(timeout=60.0)
 
     def __del__(self):  # pragma: no cover - GC-time best effort
-        self.close()
+        self._stop = True
+        self._wake.set()

@@ -1,6 +1,24 @@
-"""Speculative decoding over the paged engine (twin of the engine half of
-``ray_tpu/serve/multiplex.py``).
+"""Multi-model serving (twin of ``ray_tpu/serve/multiplex.py``): the model
+registry, the multiplexed and speculative deployments, and speculative
+decoding over the paged engine.
 
+- :class:`ModelRegistry` — a replica's catalog of models: full weight sets
+  and LoRA-style deltas over a shared base (``models/delta.py``). Cold
+  weights live in the object store through ``ray_tpu_torch.put`` (a
+  process outside a runtime keeps an in-process host copy); a model is
+  moved to the device on first use and LRU-evicted under a byte budget,
+  never while an in-flight request pins it. When everything resident is
+  pinned, a request sheds with ``RequestShedError(reason="model_budget")``.
+- :class:`MultiplexedLLMDeployment` — one replica serving many models:
+  a :class:`~ray_tpu_torch.serve.llm.LLMDeployment` per model, created on
+  the model's first request, whose params page in and out through the
+  registry (the engine's ``params_provider`` / ``drop_params``). Its load
+  report adds the resident-model digest and the merged prefix digest that
+  ``serve/handle.py`` routes on. Eviction drops the engine's params and,
+  with them, its captured CUDA graphs and their memory pools (a graph
+  holds the params' addresses).
+- :class:`SpeculativeLLMDeployment` — ``LLMDeployment`` over a
+  :class:`SpeculativeLLMEngine`.
 - :class:`SpeculativeLLMEngine` — greedy speculative decoding: a drafter
   proposes up to ``spec_k`` tokens a round and the target verifies them in
   ONE batched :func:`~ray_tpu_torch.models.verify_step_paged` call
@@ -15,21 +33,291 @@
   small draft model with the target's vocabulary, on its own paged cache,
   its step registered and captured as ``serve::mux_decode_step``).
 
-The model registry, the multiplexed and speculative deployments and the
-LoRA-style deltas wait for the actor runtime and the object store.
+Everything here stays on the public task / actor / object API: weights
+travel as ordinary objects and residency is read through
+``ray_tpu_torch.util.state.object_store_tier``.
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Any, Dict, List, Optional, Set, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from ray_tpu_torch import config as _knobs
 from ray_tpu_torch import models
-from ray_tpu_torch.serve.llm import LLMEngine, _Request, _Staging
+from ray_tpu_torch._device import Device, resolve_device
+from ray_tpu_torch.models.delta import target_shapes
+from ray_tpu_torch.models.transformer import torch_dtype
+from ray_tpu_torch.serve.admission import RequestShedError
+from ray_tpu_torch.serve.llm import LLMDeployment, LLMEngine, _Request, \
+    _Staging
+
+
+def _registry_metrics() -> Dict[str, Any]:
+    from ray_tpu_torch.util import metric_defs as md
+
+    return {"swaps": md.get("rtpu_serve_model_swaps_total"),
+            "resident": md.get("rtpu_serve_model_resident"),
+            "bytes": md.get("rtpu_serve_model_resident_bytes"),
+            "sheds": md.get("rtpu_serve_admission_sheds_total")}
+
+
+def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over a nested dict's leaves (a non-dict leaf such as a
+    delta's ``scale`` passes through unchanged unless it is a tensor)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy the registry owns (not a view of the caller's tensor)."""
+    return t.detach().to("cpu", copy=True)
+
+
+class ModelRegistry:
+    """A replica's model catalog with store-paged weights.
+
+    ``register`` parks a model's HOST weights in the object store (one
+    ``ray_tpu_torch.put``, whose spill tier ages cold models to disk;
+    outside a runtime an in-process host copy stands in).
+    ``ensure_resident`` moves them to ``device`` on demand, LRU-evicting
+    unpinned models past ``budget_bytes``; ``pin`` / ``unpin`` bracket every
+    in-flight request so its model is never paged out mid-decode. A delta
+    variant (``base=..., delta=...``) materialises through
+    :func:`~ray_tpu_torch.models.apply_delta` over the resident base: its
+    untouched leaves ARE the base's tensors, and it is charged only its
+    unique bytes (its rebuilt projections and its factors).
+
+    Thread-safe; materialisation runs under the lock, so a swap-in is
+    atomic against the evictor.
+    """
+
+    def __init__(self, *, budget_bytes: Optional[int] = None,
+                 device: Optional[Device] = None):
+        self.budget_bytes = int(
+            budget_bytes if budget_bytes is not None
+            else _knobs.get("serve_model_budget_bytes"))
+        self.device = resolve_device(device)
+        self._lock = threading.RLock()
+        self._entries: Dict[str, Dict[str, Any]] = {}
+        self._metrics = _registry_metrics()
+
+    # -- catalog -----------------------------------------------------------
+
+    def register(self, model_id: str, config: Any = None, *,
+                 params: Any = None, base: Optional[str] = None,
+                 delta: Any = None, seed: int = 0) -> None:
+        """Add a model. ``config`` is a preset name or ``TransformerConfig``
+        (a variant inherits its base's when omitted); ``params`` an
+        optional dict of tensors (drawn from a ``torch.Generator`` seeded
+        with ``seed``, on the registry's device, when absent, as
+        ``LLMEngine`` draws them); ``base`` + ``delta`` registers a
+        LoRA-style variant over an already-registered base."""
+        import ray_tpu_torch
+
+        with self._lock:
+            if model_id in self._entries:
+                raise ValueError(f"model {model_id!r} already registered")
+            if base is not None:
+                be = self._entries.get(base)
+                if be is None:
+                    raise ValueError(
+                        f"base {base!r} of {model_id!r} is not registered")
+                if delta is None:
+                    raise ValueError(
+                        f"variant {model_id!r} names base={base!r} but "
+                        "carries no delta")
+                cfg = be["config"] if config is None else config
+            else:
+                if config is None:
+                    raise ValueError(
+                        f"model {model_id!r} needs a config (or a base)")
+                cfg = config
+            if isinstance(cfg, str):
+                cfg = models.get_config(cfg)
+
+            if base is None:
+                if params is None:
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        seed)
+                    params = models.init_params(gen, cfg,
+                                                device=self.device)
+                host = _tree_map(_to_host, params)
+                nbytes = models.params_bytes(host)
+            else:
+                # the variant's host payload is its (small) delta; its
+                # resident charge is the rebuilt projections plus the
+                # factors: every other leaf is shared with the base
+                host = _tree_map(_to_host, delta)
+                itemsize = torch_dtype(cfg.param_dtype).itemsize
+                shapes = target_shapes(cfg)
+                nbytes = models.delta_bytes(host) + sum(
+                    cfg.n_layers * shapes[t][0] * shapes[t][1] * itemsize
+                    for t in host["targets"])
+
+            ref = None
+            if ray_tpu_torch.is_initialized():
+                ref = ray_tpu_torch.put(host)
+                host = None  # the store owns the cold copy
+            self._entries[model_id] = {
+                "config": cfg, "ref": ref, "host": host, "bytes": nbytes,
+                "params": None, "pins": 0, "last_used": 0.0,
+                "swaps_in": 0, "swaps_out": 0, "base": base,
+                "evict_cb": None,
+            }
+
+    def __contains__(self, model_id: str) -> bool:
+        with self._lock:
+            return model_id in self._entries
+
+    def models(self) -> List[str]:
+        with self._lock:
+            return list(self._entries)
+
+    def config_of(self, model_id: str):
+        with self._lock:
+            return self._entries[model_id]["config"]
+
+    def bind(self, model_id: str, evict_cb: Callable[[], None]) -> None:
+        """Attach the engine's drop hook that eviction fires (the engine and
+        the registry hold the SAME params dict)."""
+        with self._lock:
+            self._entries[model_id]["evict_cb"] = evict_cb
+
+    # -- pinning (in-flight requests) --------------------------------------
+
+    def pin(self, model_id: str) -> None:
+        with self._lock:
+            self._entries[model_id]["pins"] += 1
+
+    def unpin(self, model_id: str) -> None:
+        with self._lock:
+            e = self._entries[model_id]
+            if e["pins"] <= 0:
+                raise RuntimeError(f"unpin of unpinned model {model_id!r}")
+            e["pins"] -= 1
+
+    # -- residency ---------------------------------------------------------
+
+    def _fetch_host(self, e: Dict[str, Any]):
+        if e["host"] is not None:
+            return e["host"]
+        import ray_tpu_torch
+
+        return ray_tpu_torch.get(e["ref"])
+
+    def _materialize(self, e: Dict[str, Any]):
+        host = self._fetch_host(e)
+        dev = self.device
+
+        def to_device(t):
+            return t.to(dev, copy=True)
+        if e["base"] is None:
+            return _tree_map(to_device, host)
+        base_params = self._ensure_resident_locked(e["base"])
+        return models.apply_delta(base_params, _tree_map(to_device, host))
+
+    def resident_bytes(self) -> int:
+        with self._lock:
+            return sum(e["bytes"] for e in self._entries.values()
+                       if e["params"] is not None)
+
+    def _evict_for(self, need: int, keep: str) -> None:
+        """Make room for ``need`` bytes (the caller holds the lock)."""
+        if self.budget_bytes <= 0:
+            return
+        while True:
+            resident = sum(e["bytes"] for e in self._entries.values()
+                           if e["params"] is not None)
+            if resident + need <= self.budget_bytes:
+                return
+            victims = [(mid, e) for mid, e in self._entries.items()
+                       if e["params"] is not None and e["pins"] == 0
+                       and mid != keep]
+            if not victims:
+                self._metrics["sheds"].inc(tags={"reason": "model_budget"})
+                raise RequestShedError(
+                    f"model {keep!r} needs {need} resident bytes but the "
+                    f"budget ({self.budget_bytes}) is held by pinned "
+                    "models", reason="model_budget")
+            mid, e = min(victims, key=lambda kv: kv[1]["last_used"])
+            e["params"] = None
+            e["swaps_out"] += 1
+            self._metrics["swaps"].inc(tags={"direction": "out"})
+            if e["evict_cb"] is not None:
+                e["evict_cb"]()
+
+    def _ensure_resident_locked(self, model_id: str):
+        e = self._entries.get(model_id)
+        if e is None:
+            raise KeyError(f"unknown model {model_id!r}")
+        if e["params"] is None:
+            self._evict_for(e["bytes"], keep=model_id)
+            e["params"] = self._materialize(e)
+            e["swaps_in"] += 1
+            self._metrics["swaps"].inc(tags={"direction": "in"})
+        e["last_used"] = time.monotonic()
+        return e["params"]
+
+    def ensure_resident(self, model_id: str):
+        """The device params of ``model_id`` (swap-in on a miss, LRU
+        eviction for room). Raises ``RequestShedError`` (reason
+        ``model_budget``) when nothing can be evicted."""
+        with self._lock:
+            return self._ensure_resident_locked(model_id)
+
+    # -- introspection -----------------------------------------------------
+
+    def _tier(self, e: Dict[str, Any]) -> str:
+        if e["params"] is not None:
+            return "hbm"
+        if e["ref"] is None:
+            return "host"
+        from ray_tpu_torch.util.state import object_store_tier
+
+        return {"shm": "host", "spilled": "spilled"}.get(
+            object_store_tier(e["ref"]), "host")
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        """Per model: its tier (``hbm`` resident on the device, ``host`` in
+        the store or the in-process copy, ``spilled`` in the store's disk
+        tier), bytes, pins, swaps in and out, base, and residency."""
+        with self._lock:
+            out = {
+                mid: {"state": self._tier(e), "bytes": e["bytes"],
+                      "pins": e["pins"], "swaps_in": e["swaps_in"],
+                      "swaps_out": e["swaps_out"], "base": e["base"],
+                      "resident": e["params"] is not None}
+                for mid, e in self._entries.items()
+            }
+        by_state: Dict[str, int] = {}
+        for rec in out.values():
+            by_state[rec["state"]] = by_state.get(rec["state"], 0) + 1
+        for state, n in by_state.items():
+            self._metrics["resident"].set(n, tags={"state": state})
+        self._metrics["bytes"].set(
+            sum(r["bytes"] for r in out.values() if r["resident"]))
+        return out
+
+    def free(self) -> None:
+        """Drop every store ref and every resident model (replica
+        shutdown: no weight object outlives the deployment in the
+        store)."""
+        with self._lock:
+            refs = [e["ref"] for e in self._entries.values()
+                    if e["ref"] is not None]
+            for e in self._entries.values():
+                e["ref"] = None
+                e["params"] = None
+        if refs:
+            import ray_tpu_torch
+
+            ray_tpu_torch.free(refs)
 
 
 class _NgramDraft:
@@ -214,6 +502,17 @@ class SpeculativeLLMEngine(LLMEngine):
         self.stats.update(spec_rounds=0, spec_proposed=0, spec_accepted=0,
                           spec_fallbacks=0)
 
+    @staticmethod
+    def _init_metrics() -> Dict[str, Any]:
+        from ray_tpu_torch.util import metric_defs as md
+
+        m = LLMEngine._init_metrics()
+        m.update(spec_rounds=md.get("rtpu_spec_rounds_total"),
+                 spec_proposed=md.get("rtpu_spec_proposed_tokens_total"),
+                 spec_accepted=md.get("rtpu_spec_accepted_tokens_total"),
+                 spec_fallbacks=md.get("rtpu_spec_fallbacks_total"))
+        return m
+
     def _raw_verify_paged(self, params, cache, tokens, tables, pos, nvalid,
                           active):
         return models.verify_step_paged(params, cache, tokens, tables, pos,
@@ -236,6 +535,7 @@ class SpeculativeLLMEngine(LLMEngine):
             if self._spec:
                 self._spec.clear()
                 self._draft.prune(set())
+            self._sample_gauges()
             return have_pending
         self._ensure_params()
 
@@ -274,6 +574,7 @@ class SpeculativeLLMEngine(LLMEngine):
             self._spec = {r: st for r, st in self._spec.items() if r in live}
             self._draft.prune(live)
         self.stats["steps"] += 1
+        self._sample_gauges()
         return True
 
     def _advance_spec(self) -> Tuple[List[List[int]], np.ndarray]:
@@ -333,9 +634,14 @@ class SpeculativeLLMEngine(LLMEngine):
             req.pos += accepted + 1
             st = self._spec_state(req)
             if d:
+                m = self._metrics
                 self.stats["spec_rounds"] += 1
                 self.stats["spec_proposed"] += len(d)
                 self.stats["spec_accepted"] += accepted
+                m["spec_rounds"].inc()
+                m["spec_proposed"].inc(len(d))
+                if accepted:
+                    m["spec_accepted"].inc(accepted)
                 st["rounds"] += 1
                 st["ewma"] = 0.5 * st["ewma"] + 0.5 * (accepted / len(d))
                 if (st["rounds"] >= self.SPEC_WARMUP
@@ -344,6 +650,7 @@ class SpeculativeLLMEngine(LLMEngine):
                     # (k' = 0 rides the same verify program)
                     st["off"] = True
                     self.stats["spec_fallbacks"] += 1
+                    m["spec_fallbacks"].inc()
             if st["hist"] is not None:
                 st["hist"].extend(toks)
             emitted[i] = toks
@@ -355,3 +662,241 @@ class SpeculativeLLMEngine(LLMEngine):
                        ("spec_rounds", "spec_proposed", "spec_accepted",
                         "spec_fallbacks")}
         return out
+
+
+class SpeculativeLLMDeployment(LLMDeployment):
+    """:class:`~ray_tpu_torch.serve.llm.LLMDeployment` whose engine decodes
+    speculatively. Extra arguments: ``spec_k``, ``drafter`` (``"ngram"`` |
+    ``"model"``), ``draft_model`` / ``draft_params`` (the model drafter's
+    config and optional weights), ``draft_seed``, ``spec_accept_floor``,
+    ``ngram``."""
+
+    def __init__(self, model="llama-debug", *, spec_k: Optional[int] = None,
+                 drafter: str = "ngram", draft_model: Any = None,
+                 draft_params: Any = None, draft_seed: int = 1,
+                 spec_accept_floor: Optional[float] = None,
+                 ngram: int = 3, **kw):
+        self._spec_opts = dict(spec_k=spec_k, drafter=drafter,
+                               draft_model=draft_model,
+                               draft_params=draft_params,
+                               draft_seed=draft_seed,
+                               spec_accept_floor=spec_accept_floor,
+                               ngram=ngram)
+        super().__init__(model, **kw)
+
+    def _engine_factory(self, *args, **kw) -> SpeculativeLLMEngine:
+        return SpeculativeLLMEngine(*args, **kw, **self._spec_opts)
+
+
+class MultiplexedLLMDeployment:
+    """One replica serving MANY models: a per-model engine created on the
+    model's first request, its weights paged through a shared
+    :class:`ModelRegistry`.
+
+    ``models_spec`` maps ``model_id`` to a preset name, a
+    ``TransformerConfig``, or a dict ``{"config": ..., "params": ...,
+    "base": ..., "delta": ..., "seed": ...}`` (base + delta registers a
+    LoRA-style variant). Requests name their model with ``model_id=``
+    (default: the first registered)::
+
+        dep = MultiplexedLLMDeployment(
+            {"m0": "llama-debug", "m1": "gpt2-debug"}, device="cpu")
+        for tok in dep([1, 2, 3], 16, model_id="m1"):
+            ...
+
+    Each model gets its own :class:`~ray_tpu_torch.serve.llm.LLMDeployment`
+    (loop thread, admission, streaming, paged KV and prefix trie) the first
+    time a request lands on it. A request PINS its model for its stream's
+    whole life, so eviction (LRU under ``budget_bytes``) only drops idle
+    engines' params, and with them the params' captured graphs; the
+    engine's ``params_provider`` takes them back on its next step with
+    work. ``load_state`` sums the per-model engines and adds the
+    resident-model digest and the merged prefix digest that
+    ``serve/handle.py`` routes on. ``device`` and ``cuda_graphs`` go to the
+    registry and the engines (the port's additions, as in
+    ``LLMDeployment``).
+    """
+
+    def __init__(self, models_spec, *, default_model: Optional[str] = None,
+                 budget_bytes: Optional[int] = None,
+                 speculative: bool = False, spec_k: Optional[int] = None,
+                 drafter: str = "ngram", draft_model: Any = None,
+                 draft_params: Any = None,
+                 spec_accept_floor: Optional[float] = None,
+                 max_slots: int = 8, max_len: int = 256,
+                 temperature: float = 0.0, seed: int = 0,
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = True, slo: Optional[Any] = None,
+                 stream_batch: int = 1, cuda_graphs: bool = True,
+                 device: Optional[Device] = None):
+        if isinstance(models_spec, (list, tuple)):
+            models_spec = {mid: mid for mid in models_spec}
+        if not models_spec:
+            raise ValueError("models_spec is empty")
+        self.registry = ModelRegistry(budget_bytes=budget_bytes,
+                                      device=device)
+        for mid, spec in models_spec.items():
+            if isinstance(spec, dict):
+                self.registry.register(
+                    mid, spec.get("config"), params=spec.get("params"),
+                    base=spec.get("base"), delta=spec.get("delta"),
+                    seed=spec.get("seed", seed))
+            else:
+                self.registry.register(mid, spec, seed=seed)
+        self._default = default_model or next(iter(models_spec))
+        if self._default not in self.registry:
+            raise ValueError(
+                f"default_model {self._default!r} is not registered")
+        self._dep_kw = dict(max_slots=max_slots, max_len=max_len,
+                            temperature=temperature, seed=seed,
+                            paged=True, block_size=block_size,
+                            num_blocks=num_blocks,
+                            prefill_chunk=prefill_chunk,
+                            prefix_cache=prefix_cache, slo=slo,
+                            stream_batch=stream_batch,
+                            cuda_graphs=cuda_graphs,
+                            device=self.registry.device)
+        self._spec_kw = (dict(spec_k=spec_k, drafter=drafter,
+                              draft_model=draft_model,
+                              draft_params=draft_params,
+                              spec_accept_floor=spec_accept_floor)
+                         if speculative else None)
+        self._deps: Dict[str, LLMDeployment] = {}
+        self._dep_lock = threading.Lock()
+        self._ident: Optional[Dict[str, Any]] = None
+
+    # -- engine lifecycle --------------------------------------------------
+
+    def _get_dep(self, model_id: str) -> LLMDeployment:
+        with self._dep_lock:
+            dep = self._deps.get(model_id)
+            if dep is None:
+                cfg = self.registry.config_of(model_id)
+                params = self.registry.ensure_resident(model_id)
+                if self._spec_kw is not None:
+                    dep = SpeculativeLLMDeployment(cfg, params=params,
+                                                   **self._spec_kw,
+                                                   **self._dep_kw)
+                else:
+                    dep = LLMDeployment(cfg, params=params, **self._dep_kw)
+                dep._model_id = model_id
+                dep.engine.params_provider = (
+                    lambda m=model_id: self.registry.ensure_resident(m))
+                self.registry.bind(model_id, dep.engine.drop_params)
+                self._deps[model_id] = dep
+        return dep
+
+    # -- request path ------------------------------------------------------
+
+    def __call__(self, prompt_tokens, max_new_tokens: int = 16,
+                 model_id: Optional[str] = None, eos: Optional[int] = None,
+                 deadline_s: Optional[float] = None):
+        mid = model_id or self._default
+        if mid not in self.registry:
+            raise ValueError(
+                f"unknown model_id {mid!r}; registered: "
+                f"{sorted(self.registry.models())}")
+        # pin FIRST: from the residency check to the stream's end this
+        # model must not be evicted (the engine reads params only while it
+        # has work, and work implies this pin)
+        self.registry.pin(mid)
+        try:
+            self.registry.ensure_resident(mid)
+            dep = self._get_dep(mid)
+            inner = dep(prompt_tokens, max_new_tokens, eos=eos,
+                        deadline_s=deadline_s)
+        except BaseException:
+            self.registry.unpin(mid)
+            raise
+
+        def stream():
+            try:
+                yield from inner
+            finally:
+                self.registry.unpin(mid)
+
+        return stream()
+
+    # -- replica surface (serve protocol) ----------------------------------
+
+    def identity(self) -> Dict[str, Any]:
+        """This replica's actor id and node id (cached once a request has
+        the actor id: it is task-context-local)."""
+        if self._ident is None or self._ident.get("actor") is None:
+            try:
+                from ray_tpu_torch.core.runtime_context import \
+                    get_runtime_context
+
+                ctx = get_runtime_context()
+                self._ident = {"actor": ctx.get_actor_id(),
+                               "node": ctx.get_node_id()}
+            except Exception:
+                # no runtime at all (an in-process harness)
+                import os
+
+                self._ident = {
+                    "actor": None,
+                    "node": os.environ.get("RTPU_NODE_ID",
+                                           f"proc-{os.getpid()}")}
+        return self._ident
+
+    def stats(self) -> Dict[str, Any]:
+        with self._dep_lock:
+            deps = dict(self._deps)
+        out: Dict[str, Any] = {"models": self.registry.snapshot()}
+        for mid, dep in deps.items():
+            out[mid] = dep.stats()
+        return out
+
+    def load_state(self) -> Dict[str, Any]:
+        with self._dep_lock:
+            deps = dict(self._deps)
+        states = {mid: dep.load_state() for mid, dep in deps.items()}
+        ident = self.identity()
+        out: Dict[str, Any] = {
+            "inflight": sum(s["inflight"] for s in states.values()),
+            "kv_free": sum(s["kv_free"] for s in states.values()),
+            "kv_total": sum(s["kv_total"] for s in states.values()),
+            "role": "colocated",
+            "node": ident["node"],
+            "actor": ident["actor"],
+            "queued": sum(s["queued"] for s in states.values()),
+            "max_slots": (sum(s["max_slots"] for s in states.values())
+                          or self._dep_kw["max_slots"]),
+            "block_size": next((s["block_size"] for s in states.values()
+                                if s.get("block_size")), 0),
+        }
+        snap = self.registry.snapshot()
+        out["models"] = {
+            mid: {"state": rec["state"],
+                  "inflight": states.get(mid, {}).get("inflight", 0),
+                  "swaps_in": rec["swaps_in"],
+                  "swaps_out": rec["swaps_out"]}
+            for mid, rec in snap.items()
+        }
+        agg: Dict[str, int] = {}
+        for st in states.values():
+            for key, w in st.get("prefix_digest", []):
+                agg[key] = agg.get(key, 0) + int(w)
+        top = int(_knobs.get("serve_prefix_digest_top"))
+        out["prefix_digest"] = sorted(
+            agg.items(), key=lambda kv: -kv[1])[:top]
+        return out
+
+    def check_health(self) -> None:
+        with self._dep_lock:
+            deps = list(self._deps.values())
+        for dep in deps:
+            dep.check_health()
+
+    def close(self) -> None:
+        """Stop every engine's loop, drop their params (and captured
+        graphs), and free every weight object in the store."""
+        with self._dep_lock:
+            deps, self._deps = list(self._deps.values()), {}
+        for dep in deps:
+            dep.close()
+            dep.engine.drop_params()
+        self.registry.free()

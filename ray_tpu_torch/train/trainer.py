@@ -190,9 +190,10 @@ class DataParallelTrainer(BaseTrainer):
                         executor.maybe_expand(ckpt_dir,
                                               attempts=reform_attempts)
         executor.finish_training()
-        # an attempt that resumed and reported none still has a checkpoint:
-        # the one it resumed from
-        best = checkpoints[-1][1] if checkpoints else start_ckpt
+        # only what this attempt reported: an attempt that resumed and
+        # reported none returns no checkpoint, as the reference does
+        # (``_latest_checkpoint`` still finds the one it resumed from)
+        best = checkpoints[-1][1] if checkpoints else None
         return Result(
             metrics=last_metrics,
             checkpoint=Checkpoint(best) if best else None,

@@ -10,13 +10,24 @@ is recorded here.
 - **Registry** (:class:`CompiledProgramRegistry`): one row per program
   name with its component, the abstract signatures it was captured for
   (and the diff of each new one against the one before: the reference's
-  "retrace", kept on the row since the events plane is not ported), the
-  capture seconds, the calls, the FLOPs of one call (counted once per
-  signature by ``torch.utils.flop_counter.FlopCounterMode``, the
-  counterpart of XLA's ``cost_analysis``) and the bytes the capture added
-  to the graph's memory pool (``torch.cuda.memory_stats``).
+  "retrace"), the capture seconds, the calls, the FLOPs of one call
+  (counted once per signature by ``torch.utils.flop_counter.FlopCounterMode``,
+  the counterpart of XLA's ``cost_analysis``) and the bytes the capture
+  added to the graph's memory pool (``torch.cuda.memory_stats``).
   :func:`program_flops_per_step` feeds the serving engine's achieved
   FLOP/s.
+- **Compile telemetry** (:func:`_record_compile_event`, the reference's
+  sink): every capture (and every eager first call of a signature, off the
+  card or in :func:`tracked_call`) moves ``rtpu_jit_compiles_total`` and
+  ``rtpu_jit_compile_seconds``; a signature new past a program's first is
+  a retrace: ``rtpu_jit_retraces_total`` and one ``jit_recompile`` event
+  carrying the signature diff. With tracing on, each is a
+  ``device::compile`` span. A capture again after :meth:`RegisteredGraph.reset`
+  for a signature already seen counts as a capture and not as a retrace:
+  a CUDA graph holds its inputs' addresses, so swapping a model's params
+  (``LLMEngine.set_params`` / ``drop_params``) must capture again with
+  nothing about the program having changed, where ``jax.jit`` would reuse
+  its executable.
 - **Census** (:func:`live_buffer_census`): live tensors grouped by dtype,
   shape and device; :func:`snapshot` bundles it with the program table
   and the CUDA allocator's watermarks.
@@ -31,8 +42,6 @@ replayed either way, and a capture or replay that fails raises.
   :func:`node_processes` adds the driver's own, and :func:`merge_report`
   folds them into one report. The card's memory in a snapshot comes from
   a process that already holds a CUDA context; asking never makes one.
-
-Not ported yet: the metrics and the ``jit_recompile`` event.
 """
 
 from __future__ import annotations
@@ -55,6 +64,11 @@ MAX_CENSUS_GROUPS = 32  # top-N live-tensor groups by bytes
 
 _state: Dict[str, Any] = {"enabled": None}
 _lock = threading.Lock()
+#: held across a capture and across :meth:`RegisteredGraph.reset`: freeing
+#: a graph resets its executable, which is not permitted while any stream
+#: captures (a multiplexed replica evicts one model's graphs from a request
+#: thread while another model's loop thread may be capturing)
+_graph_lock = threading.RLock()
 
 
 def _resolve() -> bool:
@@ -77,6 +91,20 @@ def _reset_for_tests() -> None:
     with _lock:
         _state["enabled"] = None
     _registry = CompiledProgramRegistry()
+
+
+#: the built-in metrics, resolved once a name (and again only after the
+#: metrics registry was cleared)
+_m: Dict[str, Any] = {}
+
+
+def _metric(name: str):
+    from ray_tpu_torch.util import metric_defs, metrics
+
+    inst = _m.get(name)
+    if inst is None or metrics.registered(name) is not inst:
+        inst = _m[name] = metric_defs.get(name)
+    return inst
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +312,36 @@ def registry() -> CompiledProgramRegistry:
     return _registry
 
 
+def _record_compile_event(name: str, component: str, *, sig, seconds,
+                          donate=(), steps=1, cost=None,
+                          memory=None) -> Optional[Dict[str, Any]]:
+    """The compile-event sink (the capture, the eager first call and
+    :func:`tracked_call`): the registry row, the compile metrics, a
+    ``jit_recompile`` event on a retrace, and a ``device::compile`` span
+    when tracing is on. Returns the retrace's signature diff, or None."""
+    from ray_tpu_torch.util import events, tracing
+
+    diff = _registry.record_compile(
+        name, component, sig=sig, seconds=seconds, donate=donate,
+        steps=steps, cost=cost, memory=memory)
+    tags = {"program": name}
+    _metric("rtpu_jit_compiles_total").inc(1, tags=tags)
+    _metric("rtpu_jit_compile_seconds").observe(seconds, tags=tags)
+    if diff:
+        _metric("rtpu_jit_retraces_total").inc(1, tags=tags)
+        events.emit("jit_recompile", program=name, component=component,
+                    seconds=round(seconds, 4), diff=diff)
+    if tracing.tracing_enabled():
+        end = time.time_ns()
+        tracing.record_span(
+            "device::compile", end - int(seconds * 1e9), end,
+            {"program": name, "component": component,
+             "retrace": bool(diff),
+             **({"flops": cost["flops"]} if cost and "flops" in cost
+                else {})})
+    return diff
+
+
 def program_flops_per_step(name: str) -> Optional[float]:
     return _registry.flops_per_step(name)
 
@@ -306,12 +364,14 @@ class _Capture:
     """One signature's graph: its static inputs and outputs, and the
     addresses of the fixed arguments it reads and writes in place."""
 
-    def __init__(self, graph, tree, statics, outputs, fixed_ptrs):
+    def __init__(self, graph, tree, statics, outputs, fixed_ptrs,
+                 pool_bytes):
         self.graph = graph
         self.tree = tree            # (args, kwargs) over the static leaves
         self.statics = statics      # per leaf: its static copy, or None
         self.outputs = outputs
         self.fixed_ptrs = fixed_ptrs
+        self.pool_bytes = pool_bytes  # what the capture reserved
 
 
 class RegisteredGraph:
@@ -355,8 +415,12 @@ class RegisteredGraph:
 
     def reset(self) -> None:
         """Drop every captured graph (and its memory pool): the next call
-        of each signature captures again."""
-        self._graphs.clear()
+        of each signature captures again, and is recorded as a compile
+        (not a retrace). Off the card the next eager call of each
+        signature is recorded the same way."""
+        with _graph_lock:
+            self._graphs.clear()
+        self._seen.clear()
 
     def _is_fixed(self, path: str) -> bool:
         return any(path == f"args[{i}]" or path.startswith(f"args[{i}][")
@@ -386,7 +450,7 @@ class RegisteredGraph:
         t0 = time.perf_counter()
         out, flops = _counted(self._fn, args, kwargs)
         self._seen.add(key)
-        _registry.record_compile(
+        _record_compile_event(
             self._name, self._component, sig=abstract_signature(args, kwargs),
             seconds=time.perf_counter() - t0, donate=self._fixed,
             steps=self._steps, cost={"flops": flops})
@@ -428,8 +492,8 @@ class RegisteredGraph:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
+                with _graph_lock, torch.cuda.graph(
+                        graph, capture_error_mode="thread_local"):
                     reserved = torch.cuda.memory_stats(dev).get(
                         "reserved_bytes.all.current", 0)
                     outputs = self._fn(*s_args, **s_kwargs)
@@ -442,10 +506,10 @@ class RegisteredGraph:
         fixed_ptrs = [x.data_ptr() for (p, x), s in zip(leaves, statics)
                       if s is None and isinstance(x, torch.Tensor)]
         self._graphs[key] = _Capture(graph, tree, statics, outputs,
-                                     fixed_ptrs)
+                                     fixed_ptrs, int(pool_bytes))
         seconds = time.perf_counter() - t0
         if accounting:
-            _registry.record_compile(
+            _record_compile_event(
                 self._name, self._component,
                 sig=abstract_signature(args, kwargs),
                 seconds=seconds, donate=self._fixed,
@@ -505,7 +569,7 @@ def tracked_call(name: str, component: str, fn: Callable[[], Any],
     sig = abstract_signature(args, {**(statics or {})})
     rec = _registry.program(name)
     if rec is None or sig not in rec["sigs"]:
-        _registry.record_compile(name, component, sig=sig, seconds=dt)
+        _record_compile_event(name, component, sig=sig, seconds=dt)
     else:
         _registry.note_call(name, component)
     return out

@@ -2,7 +2,9 @@
 backward (dQ, dK/dV), at head dims 64, 128 and 256, against their plain
 PyTorch versions, and the CUDA autograd path running them. The serving
 engine's programs captured as CUDA graphs (``util.device_plane``) against
-the same programs run eagerly.
+the same programs run eagerly; a param swap releasing the step's graph
+pool, and ``remat_policy="save_attn"`` running the forward kernel once a
+layer.
 
 Marked ``cuda``; each test skips (with the reason) where no GPU is
 present. This file imports no JAX, so on a GPU machine without JAX it runs
@@ -696,6 +698,96 @@ def test_capture_survives_a_graph_the_collector_frees(cuda):
         assert torch.equal(out, torch.full((8,), 2.0, device=cuda))
     finally:
         gc.enable()
+
+
+def test_dropping_params_releases_the_step_graph_pool(cuda):
+    """A param swap drops the engine's captured graphs: after
+    ``drop_params`` the card's reserved memory falls by at least the graph
+    pool the step's capture added (the params themselves stay held here),
+    and a multiplexed replica's evicted model keeps no capture."""
+    import gc
+
+    from ray_tpu_torch.serve import MultiplexedLLMDeployment
+
+    cfg, params = _f32_model(cuda, "llama-debug")
+    cfg = cfg.replace(d_model=256, d_ff=512, n_heads=4, n_kv_heads=2)
+    params = models.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                cfg, device=cuda)
+    eng = LLMEngine(cfg, params, max_slots=4, max_len=128, block_size=16,
+                    prefill_chunk=16, device=cuda)
+    _engine_tokens(eng, [[1, 2, 3, 4, 5]], new=4)
+    pool = device_plane.registry().program(
+        "serve::decode_step_paged")["memory"]["graph_pool_bytes"]
+    assert eng._step_fn.captures == 1 and pool > 0
+
+    def settle():
+        # cuBLAS keeps a workspace a stream, allocated during the capture
+        # from the graph's pool: drop it, or it pins that pool
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+    settle()
+    before = torch.cuda.memory_reserved(cuda)
+    eng.drop_params()
+    settle()
+    released = before - torch.cuda.memory_reserved(cuda)
+    assert eng._step_fn.captures == 0
+    assert released >= pool, (released, pool)
+
+    one = sum(t.numel() * t.element_size() for t in
+              [*params["layers"].values()]
+              + [v for k, v in params.items() if k != "layers"])
+    spec = {"m0": {"config": cfg, "seed": 0}, "m1": {"config": cfg,
+                                                     "seed": 1}}
+    dep = MultiplexedLLMDeployment(spec, budget_bytes=one + 1, max_slots=2,
+                                   max_len=64, block_size=16,
+                                   prefill_chunk=16, device=cuda)
+    try:
+        list(dep([1, 2, 3], 3, model_id="m0"))
+        e0 = dep._deps["m0"].engine
+        assert e0._step_fn.captures == 1
+        list(dep([1, 2, 3], 3, model_id="m1"))     # evicts m0
+        assert e0.params is None and e0._step_fn.captures == 0
+        assert dep.registry.snapshot()["m0"]["swaps_out"] == 1
+    finally:
+        dep.close()
+
+
+def test_save_attn_runs_the_forward_kernel_once_a_layer(cuda):
+    """``remat_policy="save_attn"`` on the card: a training step launches
+    the forward kernel once a layer (full remat: twice) and the dQ and
+    dK/dV kernels once a layer, with the same loss and grads as full
+    remat, bitwise (the kernels and the recompute are deterministic)."""
+    cfg = models.llama_debug().replace(
+        d_model=256, d_ff=512, n_heads=4, n_kv_heads=2, dtype="bfloat16",
+        param_dtype="float32", remat=True)
+    params = models.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    out = {}
+    for policy in ("full", "save_attn"):
+        c = cfg.replace(remat_policy=policy)
+        leaves = {k: t.detach().clone().requires_grad_(True)
+                  for k, t in params["layers"].items()}
+        p = dict(params, layers=leaves)
+        before = (flash_cuda.launches, flash_cuda.launches_dq,
+                  flash_cuda.launches_dkv)
+        loss, _ = models.loss_and_metrics(p, {"tokens": toks}, c)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(
+            (flash_cuda.launches, flash_cuda.launches_dq,
+             flash_cuda.launches_dkv), before))
+        out[policy] = (counts, loss.detach(),
+                       {k: t.grad for k, t in leaves.items()})
+    L = cfg.n_layers
+    assert out["full"][0] == (2 * L, L, L)
+    assert out["save_attn"][0] == (L, L, L)
+    assert torch.equal(out["full"][1], out["save_attn"][1])
+    for k, g in out["full"][2].items():
+        assert torch.equal(g, out["save_attn"][2][k]), k
 
 
 def test_failed_capture_raises_without_a_fallback(cuda):

@@ -2,7 +2,10 @@
 ``tests/test_device_plane.py``): program rows, abstract signatures and the
 diff a new signature records, the kill switch, version-gated snapshots, the
 live-tensor census and the eager dispatcher hook. Off the card a registered
-program runs eagerly and keeps the same rows as a captured one."""
+program runs eagerly and keeps the same rows as a captured one. The compile
+telemetry (metrics, the ``jit_recompile`` event, the ``device::compile``
+span) is held against the JAX package's ``registered_jit`` on the same
+sequence of signatures, by the reference's own counts."""
 
 import os
 
@@ -241,3 +244,142 @@ def test_engine_programs_registered_under_the_reference_names(plane):
     assert step["sigs"][0]["args[2]"] == "int64[2,4]"
     assert step["cost"]["flops"] > 0
     assert rows["serve::copy_kv_block"]["calls"] >= 2   # warmed at init
+
+
+# ---------------------------------------------------------------------------
+# compile telemetry: metrics, the jit_recompile event, the compile span
+# ---------------------------------------------------------------------------
+
+def _compile_metrics(md, program):
+    """(compiles, retraces, compile-seconds observations) of ``program``
+    in a package's metric registry."""
+    key = (("program", program),)
+
+    def counter(name):
+        return dict(md.get(name)._samples()).get(key, 0.0)
+    hist = dict(md.get("rtpu_jit_compile_seconds")._samples())
+    return (counter("rtpu_jit_compiles_total"),
+            counter("rtpu_jit_retraces_total"),
+            hist[key][2] if key in hist else 0)
+
+
+@pytest.fixture
+def telemetry(plane):
+    """Both packages' event rings drained before and after."""
+    import jax  # noqa: F401 - the reference below runs on the CPU
+
+    from ray_tpu.util import events as jax_events
+    from ray_tpu_torch.util import events
+
+    events.drain_ring()
+    jax_events.drain_ring()
+    yield events, jax_events
+    events.drain_ring()
+    jax_events.drain_ring()
+
+
+def test_compile_telemetry_matches_the_reference(telemetry):
+    """The same calls (a signature, its repeat, a new one) through the
+    reference's ``registered_jit`` and the port's ``registered_graph``: the
+    same compile, retrace and compile-seconds counts, and one
+    ``jit_recompile`` event each, with the same diff."""
+    import jax.numpy as jnp
+
+    from ray_tpu.util import device_plane as jax_plane
+    from ray_tpu.util import metric_defs as jax_md
+    from ray_tpu_torch.util import metric_defs as md
+
+    events, jax_events = telemetry
+    name = "test::telemetry"
+    jf = jax_plane.registered_jit(lambda x: (x * 2.0).sum(), name=name,
+                                  component="test")
+    tf = device_plane.registered_graph(lambda x: (x * 2.0).sum(), name=name,
+                                       component="test")
+    j0, t0 = _compile_metrics(jax_md, name), _compile_metrics(md, name)
+    for shape in ((4, 8), (4, 8), (8, 8)):
+        jf(jnp.zeros(shape))
+        tf(torch.zeros(shape))
+    j1, t1 = _compile_metrics(jax_md, name), _compile_metrics(md, name)
+    jd = tuple(b - a for a, b in zip(j0, j1))
+    td = tuple(b - a for a, b in zip(t0, t1))
+    assert td == jd == (2, 1, 2)
+    want = [e for e in jax_events.drain_ring() if e["name"] == "jit_recompile"]
+    got = [e for e in events.drain_ring() if e["name"] == "jit_recompile"]
+    assert len(got) == len(want) == 1
+    assert got[0]["diff"] == want[0]["diff"] == {"changed": {"args[0]": {
+        "was": "float32[4,8]", "now": "float32[8,8]"}}}
+    assert got[0]["program"] == name and got[0]["component"] == "test"
+    assert got[0]["severity"] == want[0]["severity"] == "warning"
+
+
+def test_recapture_after_reset_is_a_compile_not_a_retrace(telemetry):
+    """``reset()`` (a param swap on the card: a graph holds addresses) makes
+    the next call of a known signature compile again; it is no retrace and
+    emits no event."""
+    from ray_tpu_torch.util import metric_defs as md
+
+    events, _ = telemetry
+    name = "test::reset"
+    f = device_plane.registered_graph(lambda x: x + 1, name=name)
+    before = _compile_metrics(md, name)
+    f(torch.zeros(3))
+    f.reset()
+    f(torch.zeros(3))
+    f(torch.zeros(3))
+    after = _compile_metrics(md, name)
+    assert tuple(b - a for a, b in zip(before, after)) == (2, 0, 2)
+    row = device_plane.registry().program(name)
+    assert row["compiles"] == 2 and row["retraces"] == 0
+    assert row["calls"] == 3
+    assert not [e for e in events.drain_ring()
+                if e["name"] == "jit_recompile"]
+
+
+def test_compile_span_when_tracing_is_on(telemetry, monkeypatch):
+    from ray_tpu_torch.util import tracing
+
+    monkeypatch.delenv("RTPU_TRACING", raising=False)
+    tracing._reset_for_tests()
+    f = device_plane.registered_graph(lambda a, b: a @ b, name="test::span",
+                                      component="test")
+    f(torch.ones(4, 4), torch.ones(4, 4))            # tracing off: no span
+    assert not [r for r in tracing.drain_ring()
+                if r["name"] == "device::compile"]
+    tracing.enable_tracing()
+    try:
+        f(torch.ones(8, 4), torch.ones(4, 4))        # a retrace
+        f(torch.ones(8, 4), torch.ones(4, 4))        # a call: no span
+        spans = [r for r in tracing.drain_ring()
+                 if r["name"] == "device::compile"]
+    finally:
+        tracing.disable_tracing()
+        monkeypatch.delenv("RTPU_TRACING", raising=False)
+        tracing._reset_for_tests()
+    assert len(spans) == 1
+    attrs = spans[0]["attributes"]
+    assert attrs["program"] == "test::span" and attrs["component"] == "test"
+    assert attrs["retrace"] is True and attrs["flops"] == 2 * 8 * 4 * 4
+    assert spans[0]["end_time_unix_nano"] >= spans[0]["start_time_unix_nano"]
+
+
+def test_engine_param_swap_recaptures_without_retrace(telemetry):
+    """``set_params`` / ``drop_params`` drop the step's graphs: the next step
+    records its signature again as a compile, never as a retrace."""
+    cfg = models.llama_debug().replace(dtype="float32", param_dtype="float32")
+    params = models.init_params(torch.Generator().manual_seed(2), cfg,
+                                device="cpu")
+    eng = LLMEngine(cfg, params, max_slots=2, max_len=32, block_size=4,
+                    prefill_chunk=4, device="cpu")
+    eng.params_provider = lambda: params
+    for swap in (None, eng.drop_params,
+                 lambda: eng.set_params(dict(params))):
+        if swap is not None:
+            swap()
+        eng.submit([1, 2, 3], 2, lambda t: None)
+        while eng.step():
+            pass
+    row = device_plane.registry().program("serve::decode_step_paged")
+    assert row["compiles"] == 3 and row["retraces"] == 0
+    events, _ = telemetry
+    assert not [e for e in events.drain_ring()
+                if e["name"] == "jit_recompile"]

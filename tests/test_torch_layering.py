@@ -55,6 +55,8 @@ def test_port_files_found():
     assert "chip_smoke.py" in rel
     assert "ray_tpu_torch/ops/flash_cuda.py" in rel
     assert "ray_tpu_torch/serve/llm.py" in rel
+    assert "ray_tpu_torch/models/delta.py" in rel
+    assert "ray_tpu_torch/serve/multiplex.py" in rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -182,3 +184,38 @@ def test_string_and_resolution_checkers_catch_faults(tmp_path):
                   "from ray_tpu_torch.util import device_plane\n")
     assert _reference_module_strings(str(ok)) == []
     assert _unresolved_port_imports(str(ok)) == []
+
+
+def _imported_modules(path):
+    """Every module a file imports, at any depth (function bodies too);
+    ``from pkg import name`` counts as ``pkg`` and ``pkg.name``."""
+    tree = ast.parse(open(path).read(), path)
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module)
+            out.update(f"{node.module}.{a.name}" for a in node.names)
+    return out
+
+
+@pytest.mark.parametrize("rel,expected", [
+    ("ray_tpu_torch/models/delta.py",
+     {"ray_tpu_torch._device", "ray_tpu_torch.models.transformer"}),
+    # the registry's runtime calls and residency probe sit in function
+    # bodies: the walk must see them
+    ("ray_tpu_torch/serve/multiplex.py",
+     {"ray_tpu_torch", "ray_tpu_torch.util.state",
+      "ray_tpu_torch.util.metric_defs", "ray_tpu_torch.serve.admission",
+      "ray_tpu_torch.core.runtime_context"}),
+    ("ray_tpu_torch/util/device_plane.py",
+     {"ray_tpu_torch.util.events", "ray_tpu_torch.util.tracing",
+      "ray_tpu_torch.util.metrics"}),
+])
+def test_walk_covers_the_multiplexed_slice(rel, expected):
+    path = os.path.join(ROOT, rel)
+    assert expected <= _imported_modules(path)
+    assert _forbidden_imports(path) == []
+    assert _unresolved_port_imports(path) == []
+    assert _reference_module_strings(path) == []

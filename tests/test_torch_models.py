@@ -129,15 +129,61 @@ def test_loss_and_grads_match_jax(name, variant):
                                    rtol=0, err_msg=key)
 
 
-def test_remat_save_attn_not_ported():
-    cfg = TM.llama_debug().replace(remat=True, remat_policy="save_attn")
-    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
-    toks = torch.zeros(1, 9, dtype=torch.long)
-    with torch.no_grad():   # outside autograd the policy changes nothing
-        TM.forward(params, toks, cfg)
-    with pytest.raises(NotImplementedError, match="save_attn"):
-        TM.loss_and_metrics(params, {"tokens": toks}, cfg)
+def _save_attn_grads(tp, tcfg, batch):
+    """(loss, {leaf: grad}, forward attention ops run) of the port's loss
+    under ``tcfg``'s remat policy."""
+    from ray_tpu_torch.ops import attention as TA
+
+    leaves = {k: t.detach().clone().requires_grad_(True)
+              for k, t in _leaves(tp)}
+    params = {"layers": {}}
+    for key, t in leaves.items():
+        head, _, rest = key.partition(".")
+        if rest:
+            params[head][rest] = t
+        else:
+            params[head] = t
+    TA.fwd_calls = 0
+    loss, _ = TM.loss_and_metrics(
+        params, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+    loss.backward()
+    return loss.item(), {k: t.grad for k, t in leaves.items()}, TA.fwd_calls
+
+
+@pytest.mark.parametrize("name", ["llama-debug", "gemma-debug"])
+def test_remat_save_attn_matches_reference_and_full(name):
+    """``remat_policy="save_attn"``: loss and every grad against the
+    reference's ``save_attn`` (2e-5) and against the port's ``full`` remat
+    (1e-6); the forward attention operator runs once a layer under
+    ``save_attn`` (its out and lse are saved) and twice under ``full``
+    (the recompute runs it again). 128 positions: the blockwise path."""
+    jcfg, tcfg = (c.replace(remat=True, remat_policy="save_attn")
+                  for c in _configs(name))
+    jp, tp = _params(jcfg, seed=3)
+    batch = _loss_batch("explicit", jcfg.vocab_size)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: JM.loss_and_metrics(
+            p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)[0])(jp)
+    loss, grads, calls = _save_attn_grads(tp, tcfg, batch)
+    full_loss, full_grads, full_calls = _save_attn_grads(
+        tp, tcfg.replace(remat_policy="full"), batch)
+    assert calls == tcfg.n_layers and full_calls == 2 * tcfg.n_layers
+    np.testing.assert_allclose(loss, float(jloss), atol=TOL, rtol=0)
+    np.testing.assert_allclose(loss, full_loss, atol=1e-6, rtol=0)
+    want = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
+    assert set(want) == set(grads)
+    for key, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[key], atol=TOL, rtol=0,
+                                   err_msg=key)
+        np.testing.assert_allclose(g.numpy(), full_grads[key].numpy(),
+                                   atol=1e-6, rtol=0, err_msg=key)
+    # outside autograd the policy changes nothing: one attention a layer
+    from ray_tpu_torch.ops import attention as TA
+
+    TA.fwd_calls = 0
+    with torch.no_grad():
+        TM.forward(tp, torch.from_numpy(batch["inputs"]), tcfg)
+    assert TA.fwd_calls == tcfg.n_layers
 
 
 def test_forward_rejects_moe():

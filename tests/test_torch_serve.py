@@ -125,6 +125,120 @@ def test_dense_engine_greedy_tokens_match_jax_dense_engine():
         eng.adopt([1, 2], {}, 3, 2, lambda t: None)
 
 
+SERVE_METRICS = ("rtpu_serve_ttft_seconds", "rtpu_serve_tpot_seconds",
+                 "rtpu_serve_prefix_cache_hits_total",
+                 "rtpu_serve_prefix_cache_misses_total",
+                 "rtpu_serve_prefix_hit_tokens_total",
+                 "rtpu_serve_admission_sheds_total",
+                 "rtpu_serve_kv_blocks_free", "rtpu_serve_kv_blocks_used",
+                 "rtpu_serve_pool_inflight", "rtpu_serve_pool_queued",
+                 "rtpu_serve_pool_kv_used_fraction")
+
+
+def _metric_values(md):
+    """{name: {tags: value}} of the serving metrics in a package's
+    registry; a histogram's value is its observation count."""
+    out = {}
+    for name in SERVE_METRICS:
+        m = md.get(name)
+        out[name] = {k: (v[2] if m.metric_type == "histogram" else v)
+                     for k, v in m._samples()}
+    return out
+
+
+def _moved(before, after):
+    """Counters and histograms: what moved; gauges: where they stand."""
+    out = {}
+    for name, now in after.items():
+        if "_total" in name or name.endswith("_seconds"):
+            out[name] = {k: v - before[name].get(k, 0) for k, v in now.items()
+                         if v - before[name].get(k, 0)}
+        else:
+            out[name] = now
+    return out
+
+
+def test_engine_metrics_match_the_reference_engine():
+    """The same float32 workload (a shared prefix, then the same prompts
+    again, then a request shed by a TTFT SLO) through both packages'
+    engines: the same metric movements in each package's own registry.
+    TTFT is observed once a request, TPOT once every later token, the
+    prefix counters mirror the trie and the KV gauges add up."""
+    from ray_tpu.util import metric_defs as jax_md
+    from ray_tpu_torch.util import metric_defs as md
+
+    jcfg = _f32(JM)
+    jp = JM.init_params(jax.random.PRNGKey(2), jcfg)
+    tp = TM.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 256, 8).tolist()
+    prompts = [shared + rng.integers(0, 256, n).tolist() for n in (3, 6, 2)]
+    kw = dict(max_slots=2, max_len=48, block_size=4, prefill_chunk=4)
+    moved = {}
+    for name, mk, reg in (("jax", lambda: JaxEngine(jcfg, jp, **kw), jax_md),
+                          ("port", lambda: LLMEngine(_f32(TM), tp,
+                                                     device="cpu", **kw),
+                           md)):
+        before = _metric_values(reg)
+        eng = mk()
+        outs = _run_prompts(eng, prompts, 5) + _run_prompts(eng, prompts, 5)
+        eng.admission = type(eng.admission)(type(eng.admission.slo)(
+            ttft_s=1e-9))
+        eng.admission.observe_step(1.0)
+        with pytest.raises(Exception, match="request shed"):
+            eng.submit([1, 2, 3], 2, lambda t: None)
+        moved[name] = (_moved(before, _metric_values(reg)), outs,
+                       eng.kv_state())
+    (want, want_out, want_state), (got, got_out, state) = \
+        moved["jax"], moved["port"]
+    assert got_out == want_out
+    assert got == want
+    n_req, n_tok = 2 * len(prompts), sum(len(o) for o in got_out)
+    assert got["rtpu_serve_ttft_seconds"] == {(): n_req}
+    assert got["rtpu_serve_tpot_seconds"] == {(): n_tok - n_req}
+    p = state["prefix"]
+    assert got["rtpu_serve_prefix_cache_hits_total"] == {(): p["hits"]}
+    assert got["rtpu_serve_prefix_cache_misses_total"] == {(): p["misses"]}
+    assert got["rtpu_serve_prefix_hit_tokens_total"] == {
+        (): p["hit_tokens"]}
+    assert got["rtpu_serve_admission_sheds_total"] == {
+        (("reason", "ttft"),): 1}
+    free = got["rtpu_serve_kv_blocks_free"][()]
+    used = got["rtpu_serve_kv_blocks_used"][()]
+    assert free == state["kv_free"] and free + used == state["kv_total"]
+    assert got["rtpu_serve_pool_inflight"] == {(("role", "colocated"),): 0}
+    assert state["prefix_digest"] == want_state["prefix_digest"]
+
+
+def test_engine_step_spans_and_achieved_flops(monkeypatch):
+    """With tracing on, every step after the first (the capture's) is one
+    ``serve::step`` span carrying the step program's FLOPs; the achieved
+    FLOP/s gauge is set for that program."""
+    from ray_tpu_torch.util import metric_defs as md
+    from ray_tpu_torch.util import tracing
+
+    eng = LLMEngine(_f32(TM), max_slots=2, max_len=48, block_size=4,
+                    prefill_chunk=4, device="cpu")
+    _run_prompts(eng, [[1, 2, 3, 4, 5]], 3)      # the first step, untraced
+    monkeypatch.delenv("RTPU_TRACING", raising=False)
+    tracing._reset_for_tests()
+    tracing.enable_tracing()
+    try:
+        steps0 = eng.stats["steps"]
+        _run_prompts(eng, [[9, 8, 7], [6, 5, 4, 3, 2, 1]], 4)
+        steps = eng.stats["steps"] - steps0
+        spans = [r for r in tracing.drain_ring() if r["name"] == "serve::step"]
+    finally:
+        tracing.disable_tracing()
+        monkeypatch.delenv("RTPU_TRACING", raising=False)
+        tracing._reset_for_tests()
+    assert steps > 0 and len(spans) == steps
+    assert all(s["attributes"]["program"] == "serve::decode_step_paged"
+               and s["attributes"]["flops"] > 0 for s in spans)
+    fps = dict(md.get("rtpu_device_achieved_flops_per_s")._samples())
+    assert fps[(("program", "serve::decode_step_paged"),)] > 0
+
+
 def test_engine_device_rule():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -314,8 +314,8 @@ def test_kill_and_resume_matches_uninterrupted_run(runtime, tmp_path):
     """The first attempt checkpoints after step 3 and dies after step 4; the
     restarted gang resumes from step 3's checkpoint (parameters, AdamW
     moments and steps) and ends where an uninterrupted run ends. The
-    result's checkpoint is the one it resumed from, the latest complete
-    one."""
+    resumed attempt reported no checkpoint, so the result has none, as in
+    the reference; the latest complete one is still step 3's."""
     weights = _weights(seed=4)
     result = _fit(_resume_loop, {"preset": PRESET, "weights": weights,
                                  "lr": LR, "steps": 6, "ckpt_step": 3,
@@ -330,17 +330,121 @@ def test_kill_and_resume_matches_uninterrupted_run(runtime, tmp_path):
                                rtol=1e-6)
     from ray_tpu_torch.train.trainer import _latest_checkpoint
 
-    assert result.checkpoint.path == os.path.join(result.path,
-                                                  "checkpoint_000000")
-    assert _latest_checkpoint(result.path, 1) == result.checkpoint.path
-    assert int(load_pytree(os.path.join(result.checkpoint.path,
-                                        "rank_0"))["step"]) == 3
+    assert result.checkpoint is None
+    latest = _latest_checkpoint(result.path, 1)
+    assert latest == os.path.join(result.path, "checkpoint_000000")
+    assert int(load_pytree(os.path.join(latest, "rank_0"))["step"]) == 3
     final = load_pytree(os.path.join(result.path, "final"))
     assert int(final["step"]) == 6
     for (key, got), (_, ref) in zip(_leaves(final["params"]),
                                     _leaves(helper.state["params"])):
         np.testing.assert_allclose(got.numpy(), ref.detach().numpy(),
                                    rtol=1e-6, atol=0, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# Result.checkpoint after a resume, in both packages on the same script
+# ---------------------------------------------------------------------------
+
+class _ScriptedExecutor:
+    """A ``BackendExecutor`` whose gang is a script: per attempt, the steps
+    it reports (each ``(step, checkpoint?)``) and whether it then dies. A
+    reported checkpoint is written complete (world size stamp, rank marker,
+    rank dir) as the session's copy leaves it."""
+
+    script = []
+    started_from = []
+
+    def __init__(self, backend_config, scaling_config):
+        self._attempt = len(self.started_from)
+
+    def start(self, num_workers=None):
+        pass
+
+    def shutdown(self):
+        pass
+
+    def start_training(self, train_fn, *, loop_config, trial_dir,
+                       experiment_name, checkpoint_path, datasets):
+        self.started_from.append(checkpoint_path and
+                                 os.path.relpath(checkpoint_path, trial_dir))
+        steps, dies = self.script[self._attempt]
+        self._results = []
+        for step, ckpt in steps:
+            path = None
+            if ckpt:
+                path = os.path.join(trial_dir, f"checkpoint_{step:06d}")
+                os.makedirs(os.path.join(path, "rank_0"))
+                for name, text in ((".world_size", "1"), (".rank_0.ok", "")):
+                    with open(os.path.join(path, name), "w") as f:
+                        f.write(text)
+            self._results.append([({"step": step}, path)])
+        self._dies = dies
+
+    def get_next_results(self):
+        if self._results:
+            return self._results.pop(0)
+        if self._dies:
+            raise RuntimeError("worker died")
+        return None
+
+    def finish_training(self):
+        pass
+
+
+RESUME_SCRIPTS = {
+    # checkpoint after step 3, death after step 4, the retry reports none
+    "resumed_reports_none": ([([(1, 0), (2, 0), (3, 1), (4, 0)], True),
+                              ([(4, 0), (5, 0), (6, 0)], False)], False),
+    # the retry reports a checkpoint of its own
+    "resumed_reports_one": ([([(1, 0), (2, 1), (3, 0)], True),
+                             ([(3, 0), (4, 1), (5, 0)], False)], False),
+    # resume_from_checkpoint= given, and nothing reported
+    "given_reports_none": ([([(1, 0), (2, 0)], False)], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESUME_SCRIPTS))
+def test_resumed_result_checkpoint_matches_reference(case, tmp_path,
+                                                     monkeypatch):
+    """Both trainers run the same kill-and-resume script: their
+    ``Result.checkpoint``, the checkpoints each attempt started from, and
+    ``_latest_checkpoint`` of the trial are the same."""
+    script, given = RESUME_SCRIPTS[case]
+    seen = {}
+    for mod in _trainers():
+        pkg = mod.__name__.split(".")[0]
+        train_mod = importlib.import_module(f"{pkg}.train")
+        executor = type("Executor", (_ScriptedExecutor,),
+                        {"script": script, "started_from": []})
+        monkeypatch.setattr(mod, "BackendExecutor", executor)
+        start = None
+        if given:
+            start = tmp_path / pkg / "given"
+            start.mkdir(parents=True)
+            start = train_mod.Checkpoint(str(start))
+        trainer_cls = (mod.JaxTrainer if pkg == "ray_tpu"
+                       else mod.TorchTrainer)
+        result = trainer_cls(
+            lambda config: None,
+            scaling_config=train_mod.ScalingConfig(num_workers=1),
+            run_config=train_mod.RunConfig(
+                storage_path=str(tmp_path / pkg),
+                failure_config=train_mod.FailureConfig(
+                    max_failures=len(script) - 1)),
+            resume_from_checkpoint=start).fit()
+        rel = (None if result.checkpoint is None
+               else os.path.relpath(result.checkpoint.path, result.path))
+        latest = mod._latest_checkpoint(result.path, 1)
+        seen[pkg] = dict(checkpoint=rel,
+                         latest=latest and os.path.relpath(latest,
+                                                           result.path),
+                         started_from=executor.started_from)
+    assert seen["ray_tpu_torch"] == seen["ray_tpu"]
+    want = {"resumed_reports_none": None,
+            "resumed_reports_one": "checkpoint_000004",
+            "given_reports_none": None}[case]
+    assert seen["ray_tpu_torch"]["checkpoint"] == want
 
 
 # ---------------------------------------------------------------------------
