@@ -67,7 +67,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    card's memory after the last swap within 64 MiB of what the live
    models, KV pools and graphs hold; then the same order through a
    multiplexed replica (``handle.options(model_id=...)``), token for
-   token, with the store sized for the base's host copy (or spilling);
+   token, with the store sized for the base's host copy (or spilling).
+   Disaggregated serving, once this process has let go of the weights: a
+   driver process of its own (``--disagg-driver``) runs ``deploy_disagg``
+   with one prefill and two decode replicas sharing the card (a fraction
+   of the GPU resource each), the 8 requests one at a time through
+   ``DisaggHandle.stream`` (token-exact against this process's captured
+   colocated engine; each one's KV transfer bytes, seconds and path from
+   ``rtpu_serve_kv_transfer_*``, which must be the ring), both waves twice
+   at once (the bf16 bar; TTFT, TPOT and tokens/s beside the colocated
+   replica's), and a live session drained to the other decode replica
+   (its tokens equal the undisturbed stream's, no re-prefill); no pool
+   leaks a block and shutdown leaves no segment of the session;
 7. training: one float32 train step of a small gemma-style config on the
    card against the same step on the CPU (head dims 64 and 256; full
    remat and ``remat_policy="save_attn"``), then
@@ -90,8 +101,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at B=1, L=8192 through the kernel at D = 256; the paged and the dense
    (``paged=False``, at its first 8 layers) engine each answer the 8
    requests of phase 6 (eager against captured, profiled, as there),
-   greedy tokens held against the kernel-backed forward in bf16 and in
-   float32;
+   greedy tokens held against the kernel-backed forward in bf16 and, at
+   the first 8 layers, in float32;
    ``models.generate`` (B=2, 256-token prompt, 32 new tokens), its f32
    tokens held against the f32 forward;
 9. Mistral-7B (all 32 layers, bf16 weights): ``models.generate`` on a
@@ -105,6 +116,8 @@ line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
+import glob
 import hashlib
 import http.client
 import json
@@ -2124,6 +2137,9 @@ def phase_serve_runtime(cfg, params, card, fwd_ref, inproc, mux=None,
         device_report=got["device_report"],
         cuda_in_driver=[got["cuda_after_init"], got["cuda_at_end"]],
         plain_worker=got["plain_worker"])
+    # the printed record leaves the tokens out; the disaggregated phase is
+    # held to them
+    out_rec = dict(rec, sequential=sequential)
     print(f"[serve runtime] llama3_8b {cfg.n_layers} layers bf16 through "
           f"LLMDeployment on a replica: {len(prompts)} requests one at a "
           f"time token-exact against the in-process engine; "
@@ -2160,9 +2176,9 @@ def phase_serve_runtime(cfg, params, card, fwd_ref, inproc, mux=None,
         raise AssertionError("the replica's device-plane snapshot never "
                              f"reached the driver: {rec['device_report']}")
     if mux is not None:
-        rec["multiplex"] = _check_mux_replica(cfg, got["multiplex"], mux,
-                                              card)
-    return rec
+        out_rec["multiplex"] = _check_mux_replica(cfg, got["multiplex"], mux,
+                                                  card)
+    return out_rec
 
 
 def _check_mux_replica(cfg, got, mux, card):
@@ -2211,6 +2227,389 @@ def _check_mux_replica(cfg, got, mux, card):
     if held < sizes["m0"] // 2:
         raise AssertionError(f"the base's host copy is not in the store's "
                              f"{plan['store']} tier: {store}")
+    return rec
+
+
+# Disaggregated serving: one prefill and two decode replicas share the card
+# (a fraction of the GPU resource each, and the CUDA_VISIBLE_DEVICES opt-in)
+DISAGG_DEPLOYMENT = "llama3_8b_disagg"
+DISAGG_SHARE = 0.3
+DISAGG_DRAIN_TOKENS = 256
+KV_TRANSFER_METRICS = ("rtpu_serve_kv_transfers_total",
+                       "rtpu_serve_kv_transfer_bytes_total",
+                       "rtpu_serve_kv_transfer_seconds")
+
+
+def _kv_transfer_totals():
+    """``{origin: {path: [transfers, bytes, seconds]}}`` of the replicas'
+    ``rtpu_serve_kv_transfer_*`` metrics, as their workers pushed them to
+    this driver (each side of a transfer observes it: the prefill replica
+    its ship, the decode replica its fetch)."""
+    from ray_tpu_torch.util.metrics import federation
+
+    out = {}
+    for labels, records in federation.export():
+        origin = labels.get("worker_id", "?")
+        for rec in records:
+            if rec["name"] not in KV_TRANSFER_METRICS:
+                continue
+            col = KV_TRANSFER_METRICS.index(rec["name"])
+            for key, value in rec["samples"]:
+                path = dict(map(tuple, key)).get("path", "?")
+                row = out.setdefault(origin, {}).setdefault(path, [0, 0, 0.0])
+                # a histogram's sample is (bucket counts, sum, count)
+                row[col] = value[1] if col == 2 else value
+    return out
+
+
+def _transfer_delta(before, after):
+    """What each origin's transfer metrics moved by, by path."""
+    out = {}
+    for origin, paths in after.items():
+        for path, row in paths.items():
+            prev = before.get(origin, {}).get(path, [0, 0, 0.0])
+            d = [a - b for a, b in zip(row, prev)]
+            if d[0]:
+                out.setdefault(origin, {})[path] = d
+    return out
+
+
+def _replica_stats(handle):
+    """Each replica's ``stats`` (engine counters and KV state), by actor id;
+    each call also makes the replica's worker push its metrics."""
+    import ray_tpu_torch
+
+    handle._refresh(force=True, timeout=60)
+    return {r._actor_id.binary().hex(): ray_tpu_torch.get(
+        r.handle_request.remote("stats", (), {}), timeout=60)
+        for r in handle._replicas}
+
+
+def disagg_driver(out_path, seed=0, model="llama3-8b", device=None,
+                  share=DISAGG_SHARE, new_tokens=NEW_TOKENS,
+                  drain_tokens=DISAGG_DRAIN_TOKENS):
+    """The driver of the disaggregated phase, in a process of its own that
+    never touches the card: ``ray_tpu_torch.init()``, ``deploy_disagg`` at
+    full width and depth (bf16 weights drawn on the card from the seed by
+    each replica; 8 slots, max_len 512, captured steps), 1 prefill + 2
+    decode replicas each with ``share`` of the card. Then the 8 requests one
+    at a time through ``DisaggHandle.stream`` (each one's transfer bytes,
+    seconds and path from the ``rtpu_serve_kv_transfer_*`` metrics), both
+    waves twice at once (16 streams), an undisturbed long stream and the
+    same stream drained off its decode replica mid-way, the pools' counts
+    and KV state, shutdown, and the session's segments left in
+    ``/dev/shm``. Writes what it saw to ``out_path`` (``torch.save``)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import _native
+
+    os.environ["RTPU_METRICS_PUSH_INTERVAL_S"] = "0.2"
+    native = _native.native_status()
+    if not (native["store"] and native["pipe"]):
+        raise AssertionError(f"the object store is not native: {native}")
+    used_before_mib = _card_memory_used_mib() if device is None else 0
+    print(f"[disagg] card memory used before the replicas: {used_before_mib} "
+          "MiB", flush=True)
+    ray_tpu_torch.init()
+    session = ray_tpu_torch.get_runtime_context().get_session_id()
+    try:
+        _disagg_run(out_path, session, seed, model, device, share,
+                    new_tokens, drain_tokens, used_before_mib)
+    except BaseException:
+        _print_worker_errors()
+        ray_tpu_torch.shutdown()
+        raise
+
+
+def _print_worker_errors():
+    """The tracebacks in this runtime's worker logs (a replica that died
+    while it was built reports only "actor is dead" to its caller)."""
+    from ray_tpu_torch.core.runtime import _get_runtime
+
+    logs = os.path.join(_get_runtime().session_dir, "logs")
+    for name in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, name), errors="replace") as f:
+            lines = f.read().splitlines()
+        at = [i for i, line in enumerate(lines) if "Traceback" in line]
+        if at:
+            print(f"[disagg] {name}:\n" + "\n".join(lines[at[0]:][-60:]),
+                  flush=True)
+
+
+def _disagg_run(out_path, session, seed, model, device, share, new_tokens,
+                drain_tokens, used_before_mib):
+    """``disagg_driver``'s body, once the runtime is up."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    out = dict(cuda_after_init=torch.cuda.is_initialized(),
+               resources=ray_tpu_torch.available_resources())
+    cfg = models.get_config(model).replace(param_dtype="bfloat16")
+    waves = _waves(cfg, seed)
+    prompts = waves[0] + waves[1]
+    opts = dict(ON_CARD, num_gpus=share) if share else {}
+    kw = dict(device=device) if device else {}
+    t0 = time.perf_counter()
+    h = serve.deploy_disagg(
+        cfg, name=DISAGG_DEPLOYMENT, prefill_replicas=1, decode_replicas=2,
+        max_concurrency=32, prefill_actor_options=opts,
+        decode_actor_options=opts, max_slots=8, max_len=512, block_size=16,
+        seed=seed, **kw)
+    # the replicas are up once each answers; the router sends a transfer
+    # over a ring once the decode pool's load reports name its node
+    out["prefill_stats0"] = _replica_stats(h.prefill)
+    out["decode_stats0"] = _replica_stats(h.decode)
+    deadline = time.monotonic() + 60
+    while (len(h._fresh(h._pool_loads(h.decode))) < 2
+           or len(h._fresh(h._pool_loads(h.prefill))) < 1):
+        if time.monotonic() > deadline:
+            raise AssertionError("the pools' load reports never came")
+        time.sleep(0.1)
+    out["deploy_s"] = time.perf_counter() - t0
+    out["card_used_mib"] = ((_card_memory_used_mib() - used_before_mib)
+                            if device is None else 0)
+    # one at a time: tokens, and each request's transfer from the metrics
+    out["sequential"], out["transfers"] = [], []
+    for p in prompts:
+        before = _kv_transfer_totals()
+        out["sequential"].append(list(h.stream(p, new_tokens,
+                                               deadline_s=300)))
+        deadline = time.monotonic() + 20
+        while True:
+            time.sleep(0.25)
+            _replica_stats(h.prefill), _replica_stats(h.decode)
+            delta = _transfer_delta(before, _kv_transfer_totals())
+            if sum(row[0] for paths in delta.values()
+                   for row in paths.values()) >= 2:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"request of {len(p)} tokens: the KV "
+                                     f"transfer metrics moved by {delta}")
+        out["transfers"].append(delta)
+    # both waves twice, at once
+    streams = prompts * 2
+    results, stamps, errors = [None] * 16, [None] * 16, []
+
+    def run(i):
+        try:
+            t_sub, toks, ts = time.perf_counter(), [], []
+            for tok in h.stream(streams[i], new_tokens, deadline_s=300):
+                ts.append(time.perf_counter())
+                toks.append(tok)
+            results[i], stamps[i] = toks, (t_sub, ts)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(streams))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    out["concurrent_wall_s"] = time.perf_counter() - t0
+    if errors or any(r is None for r in results):
+        raise AssertionError(f"concurrent streams failed: {errors[:3]}")
+    out["concurrent"] = results
+    out["concurrent_timing"] = _stream_stats(stamps,
+                                             new_tokens * len(streams))
+    # a long stream undisturbed, then the same one drained mid-way: its
+    # decode replica migrates the live session to the other one
+    drain_prompt = waves[0][1]
+    t0 = time.perf_counter()
+    out["undisturbed"] = list(h.stream(drain_prompt, drain_tokens,
+                                       deadline_s=300))
+    out["undisturbed_s"] = time.perf_counter() - t0
+    exported0 = sum(s["exported"] for s in _replica_stats(h.prefill).values())
+    t0 = time.perf_counter()
+    g = h.stream(drain_prompt, drain_tokens, deadline_s=300)
+    drained = [next(g) for _ in range(8)]
+    live = [hx for hx, st in _replica_stats(h.decode).items()
+            if st["inflight"] >= 1]
+    if len(live) != 1:
+        raise AssertionError(f"live decode sessions on {live}, expected one")
+    t1 = time.perf_counter()
+    out["drain_report"] = h.drain_decode_replica(live[0], timeout_s=60.0)
+    out["drain_s"] = time.perf_counter() - t1
+    out["drained_at"] = len(drained)
+    drained += list(g)
+    out["drained_stream_s"] = time.perf_counter() - t0
+    out["drained"] = drained
+    out["drain_victim"] = live[0]
+    out["prefill_stats"] = _replica_stats(h.prefill)
+    out["decode_stats"] = _replica_stats(h.decode)
+    out["exported_by_drain"] = sum(
+        s["exported"] for s in out["prefill_stats"].values()) - exported0
+    out["kv_states"] = h.kv_states()
+    time.sleep(0.5)
+    out["transfer_totals"] = _kv_transfer_totals()
+    h.shutdown()
+    serve.shutdown()
+    ray_tpu_torch.shutdown()
+    out["left_in_dev_shm"] = sorted(
+        glob.glob(f"/dev/shm/rtpu-chan-{session}-*")
+        + glob.glob(f"/dev/shm/rtpu-arena-{session}*"))
+    out["cuda_at_end"] = torch.cuda.is_initialized()
+    torch.save(out, out_path)
+
+
+def phase_disagg_runtime(card, colocated, seed=0, device="cuda"):
+    """Disaggregated serving through the framework, after this process has
+    let go of the llama3_8b weights: a driver process that never touches
+    the card (``disagg_driver``) deploys one prefill and two decode
+    replicas on the card and drives them. Held here: its one-at-a-time
+    tokens equal this process's captured colocated engine's
+    (``colocated["sequential"]``, the serve runtime phase's), token for
+    token; every one of the 16 concurrent streams meets the bf16 bar
+    against the kernel-backed forward (the weights drawn again from the
+    seed once the replicas are gone); every transfer rode a ring; the
+    prefill pool exported and the decode pool adopted every request, the
+    drained session once more, with no re-prefill; the drained stream
+    equals the undisturbed one; no pool leaked a block; shutdown left no
+    segment of the session. Prints TTFT / TPOT p50 and tokens/s beside the
+    colocated replica's under the same 16 requests, each request's
+    transfer and the migration's time."""
+    # engines of earlier phases may sit in reference cycles: collect them
+    # before three replicas need 48 GB of the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[disagg] this process holds {torch.cuda.memory_allocated()} "
+          f"bytes on the card ({torch.cuda.memory_reserved()} reserved)",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_disagg_")
+    out_path = os.path.join(tmp, "disagg.pt")
+    try:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--disagg-driver", out_path], check=True, timeout=600)
+        got = torch.load(out_path, weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _check_disagg(got, card, colocated, seed=seed, device=device)
+
+
+def _check_disagg(got, card, colocated, seed=0, device="cuda",
+                  model="llama3-8b", new_tokens=NEW_TOKENS):
+    """What ``phase_disagg_runtime`` holds the driver's run to."""
+    cfg = models.get_config(model).replace(param_dtype="bfloat16")
+    waves = _waves(cfg, seed)
+    prompts = waves[0] + waves[1]
+    n = len(prompts)
+    if got["sequential"] != colocated["sequential"]:
+        bad = [i for i, (a, b) in enumerate(zip(got["sequential"],
+                                                colocated["sequential"]))
+               if a != b]
+        raise AssertionError(f"disagg: requests {bad} one at a time differ "
+                             "from the colocated engine")
+    if got["cuda_after_init"] or got["cuda_at_end"]:
+        raise AssertionError("disagg: CUDA initialised in the driver")
+    # each request: one ship (the prefill replica) and one fetch (a decode
+    # replica), both over the ring, the same bytes on both sides
+    per_request, prefill_origins = [], None
+    for i, rows in enumerate(got["transfers"]):
+        if (len(rows) != 2 or any(list(paths) != ["channel"]
+                                  for paths in rows.values())
+                or any(r["channel"][0] != 1 for r in rows.values())):
+            raise AssertionError(f"disagg request {i}: transfers {rows}")
+        nbytes = {r["channel"][1] for r in rows.values()}
+        if len(nbytes) != 1:
+            raise AssertionError(f"disagg request {i}: bytes {rows}")
+        prefill_origins = (set(rows) if prefill_origins is None
+                           else prefill_origins & set(rows))
+        per_request.append(dict(prompt=len(prompts[i]), bytes=nbytes.pop(),
+                                seconds={o: r["channel"][2]
+                                         for o, r in rows.items()}))
+    if not prefill_origins or len(prefill_origins) != 1:
+        raise AssertionError(f"disagg: no one replica shipped every request "
+                             f"({prefill_origins})")
+    ship = prefill_origins.pop()
+    transfers = [dict(prompt=r["prompt"], bytes=r["bytes"],
+                      ship_s=r["seconds"][ship],
+                      fetch_s=next(v for o, v in r["seconds"].items()
+                                   if o != ship))
+                 for r in per_request]
+    for t in transfers:
+        t["ship_gb_s"] = t["bytes"] / t["ship_s"] / 1e9
+        t["fetch_gb_s"] = t["bytes"] / t["fetch_s"] / 1e9
+    paths = {path for paths in got["transfer_totals"].values()
+             for path in paths}
+    # the counts: every request exported once, adopted once; the drained
+    # session adopted once more and exported by no prefill
+    requests = n + 2 * n + 2
+    pstats, dstats = got["prefill_stats"], got["decode_stats"]
+    exported = sum(s["exported"] for s in pstats.values())
+    adopted = sum(s["adopted"] for s in dstats.values())
+    migrated = {hx: s["migrated_out"] for hx, s in dstats.items()}
+    report = got["drain_report"]
+    counts = dict(exported=exported, adopted=adopted, migrated_out=migrated,
+                  exported_by_drain=got["exported_by_drain"],
+                  drain_report=report)
+    if (exported != requests or adopted != requests + 1
+            or migrated.get(got["drain_victim"]) != 1
+            or sum(migrated.values()) != 1
+            or got["exported_by_drain"] != 1
+            or report != {"sessions": 1, "migrated": 1, "failed": 0,
+                          "finished": 0}):
+        raise AssertionError(f"disagg counts: {counts}")
+    if got["drained"] != got["undisturbed"]:
+        bad = next(i for i, (a, b) in enumerate(zip(got["drained"],
+                                                    got["undisturbed"]))
+                   if a != b) if len(got["drained"]) == len(
+                       got["undisturbed"]) else "length"
+        raise AssertionError(f"disagg: the drained stream differs from the "
+                             f"undisturbed one at {bad}")
+    leaks = {role: [(s["kv_free"], s["prefix"]["nodes"], s["kv_total"],
+                     s["inflight"], s["queued"]) for s in states]
+             for role, states in got["kv_states"].items()}
+    if any(f + nodes != total or inflight or queued
+           for states in leaks.values()
+           for f, nodes, total, inflight, queued in states):
+        raise AssertionError(f"disagg: a pool leaked KV blocks: {leaks}")
+    if got["left_in_dev_shm"]:
+        raise AssertionError(f"disagg: shutdown left {got['left_in_dev_shm']}")
+    if paths != {"channel"}:
+        raise AssertionError(f"disagg: transfers took the paths {paths}")
+    if any(len(t) != new_tokens for t in got["concurrent"]):
+        raise AssertionError(f"disagg: concurrent stream lengths "
+                             f"{[len(t) for t in got['concurrent']]}")
+    # the bf16 bar on the 16 concurrent streams, against the forward on the
+    # same weights, drawn again here
+    cfg, params, _ = _bf16_weights(model, seed)
+    agree = _check_greedy(
+        "disagg bf16", *_greedy_vs_forward(
+            params, cfg, [(p, t + [None]) for p, t in
+                          zip(prompts * 2, got["concurrent"])], device),
+        BF16_AGREE_MIN, BF16_GAP_TOL)
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    co = colocated["replica_all"]
+    dis = got["concurrent_timing"]
+    rec = dict(deploy_s=got["deploy_s"], card_used_mib=got["card_used_mib"],
+               concurrent=dis, colocated_replica=co,
+               concurrent_wall_s=got["concurrent_wall_s"], agree=agree,
+               transfers=transfers, counts=counts, kv_states=leaks,
+               drain=dict(tokens=len(got["drained"]),
+                          drained_at=got["drained_at"],
+                          drain_call_s=got["drain_s"],
+                          drained_stream_s=got["drained_stream_s"],
+                          undisturbed_s=got["undisturbed_s"]),
+               left_in_dev_shm=got["left_in_dev_shm"])
+    print(f"[disagg] {model} 1 prefill + 2 decode replicas sharing the card: "
+          f"{n} requests one at a time token-exact against the colocated "
+          f"engine; {json.dumps(rec, default=str)}", flush=True)
+    mean = {k: float(np.mean([t[k] for t in transfers]))
+            for k in ("bytes", "ship_s", "fetch_s", "ship_gb_s",
+                      "fetch_gb_s")}
+    print(f"[disagg] TTFT p50 / TPOT p50 / tokens/s, 16 concurrent streams: "
+          f"disaggregated {dis['ttft_p50_ms']:.1f} / {dis['tpot_p50_ms']:.2f}"
+          f" / {dis['tokens_per_s']:.0f}; colocated replica "
+          f"{co['ttft_p50_ms']:.1f} / {co['tpot_p50_ms']:.2f} / "
+          f"{co['tokens_per_s']:.0f}. KV transfer (ring, mean of {n}): "
+          f"{mean['bytes'] / 2**20:.1f} MiB, ship {mean['ship_s'] * 1e3:.2f} "
+          f"ms ({mean['ship_gb_s']:.2f} GB/s), fetch "
+          f"{mean['fetch_s'] * 1e3:.2f} ms ({mean['fetch_gb_s']:.2f} GB/s); "
+          f"drain of a live session {got['drain_s'] * 1e3:.1f} ms, the "
+          f"drained stream {got['drained_stream_s']:.2f} s against "
+          f"{got['undisturbed_s']:.2f} s undisturbed, on {card}", flush=True)
     return rec
 
 
@@ -2852,12 +3251,16 @@ def main():
     mux = _phase("llama3_8b multiplex", phase_multiplex, cfg, params, card)
     # the serving path through the framework: runtime, object store, Serve
     # (and the multiplexed replica)
-    _phase("llama3_8b serve (runtime)", phase_serve_runtime, cfg, params,
-           card, fwd_ref, {k: v[1] for k, v in served["captured"].items()
-                           if k in ("ttft_p50_ms", "tpot_p50_ms",
-                                    "tokens_per_s")}, mux)
+    colocated = _phase(
+        "llama3_8b serve (runtime)", phase_serve_runtime, cfg, params, card,
+        fwd_ref, {k: v[1] for k, v in served["captured"].items()
+                  if k in ("ttft_p50_ms", "tpot_p50_ms", "tokens_per_s")}, mux)
     del params
     torch.cuda.empty_cache()
+    # disaggregated serving: three replicas of llama3_8b share the card, so
+    # this process holds no weights of its own meanwhile
+    _phase("llama3_8b disagg (runtime)", phase_disagg_runtime, card,
+           colocated)
     counts, full_row = _phase("llama_1b training", phase_train, card)
     torch.cuda.empty_cache()
     _phase("llama_1b training save_attn", phase_train_save_attn, card,
@@ -2886,16 +3289,17 @@ def main():
     d256_mix = {"gemma2_window4096_L8192_softcap50_d256": n_window,
                 "gemma2_global_L8192_softcap50_d256":
                     sum(1 for w in cfg.layer_windows if not w)}
+    # the dense engine and both float32 checks at a cut depth (views of the
+    # first layers): the smoke's time limit
+    cut = _draft_of(cfg, params, GEMMA2_DENSE_LAYERS)
     for paged in (True, False):
         kind = "paged" if paged else "dense"
-        # the dense engine at a cut depth (views of the first layers): the
-        # smoke's time limit
-        c, p = ((cfg, params) if paged
-                else _draft_of(cfg, params, GEMMA2_DENSE_LAYERS))
+        c, p = (cfg, params) if paged else cut
         _phase(f"gemma2_9b serving {kind}", phase_serving, c, p, card,
                paged=paged)
-        _phase(f"gemma2_9b serving {kind} f32", phase_greedy_f32, c, p, card,
+        _phase(f"gemma2_9b serving {kind} f32", phase_greedy_f32, *cut, card,
                paged=paged)
+    del cut
     _phase("gemma2_9b generate", phase_generate, cfg, params, card, b=2,
            prompt_len=256, new_tokens=32)
     del params
@@ -2949,5 +3353,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-runtime-driver"]:
         serve_runtime_driver(sys.argv[2], mux_budget=(
             int(sys.argv[3]) if len(sys.argv) > 3 else None))
+    elif sys.argv[1:2] == ["--disagg-driver"]:
+        disagg_driver(sys.argv[2])
     else:
         main()

@@ -267,6 +267,11 @@ _knob("spec_accept_floor", float, 0.2,
       "acceptance collapses below this after the warmup rounds falls "
       "back to plain decode permanently (speculation only pays when "
       "drafts are accepted)", "serve/multiplex.py")
+_knob("serve_disagg_cross_node_penalty", float, 2.0,
+      "routing-score penalty for picking a decode replica on a "
+      "DIFFERENT host than the chosen prefill replica (a same-host "
+      "DeviceChannel KV transfer beats a cross-node store pull); 0 "
+      "ignores host locality", "serve/disagg.py")
 _knob("llm_stall_timeout_s", float, 120.0,
       "seconds a caller waits for the NEXT token from the LLM decode "
       "loop before declaring the stream stalled (per-request deadline_s "

@@ -4,14 +4,18 @@ Role analog: ``python/ray/serve`` (SURVEY §2.5, §3.6). Control plane =
 named controller actor reconciling replica actors; data plane = handle →
 power-of-two-choices routing → replica actor call; plus dynamic batching,
 model composition, autoscaling, and an HTTP proxy. LLM serving on PyTorch:
-``LLMDeployment`` runs the paged continuous-batching engine (with KV export
-and adoption for disaggregated serving) on a replica, on the card or the
-CPU; ``SpeculativeLLMDeployment`` decodes speculatively over the same
-engine, and ``MultiplexedLLMDeployment`` serves many models (full weight
-sets and LoRA-style deltas) from one replica through a ``ModelRegistry``.
+``LLMDeployment`` runs the paged continuous-batching engine on a replica,
+on the card or the CPU; ``deploy_disagg`` splits it into a prefill pool and
+a decode pool that ship KV blocks between them (``kv_transfer.py``) behind
+a ``DisaggHandle``, which also drains live sessions from one decode replica
+to another; ``SpeculativeLLMDeployment`` decodes speculatively over the
+same engine, and ``MultiplexedLLMDeployment`` serves many models (full
+weight sets and LoRA-style deltas) from one replica through a
+``ModelRegistry``.
 
-Not ported yet (ROADMAP.md queue 1): compiled deployments, KV transfer and
-disaggregation, the gRPC proxy.
+Not ported yet (ROADMAP.md queue 1 item 2, the part still to come):
+compiled deployments (they need ``dag/``), the gRPC proxy
+(``grpc_proxy.py``) and ``config_api.py``.
 """
 
 from ray_tpu_torch.serve.admission import (AdmissionController,
@@ -35,8 +39,10 @@ from ray_tpu_torch.serve.deployment import (
     DeploymentConfig,
     deployment,
 )
+from ray_tpu_torch.serve.disagg import DisaggHandle, deploy_disagg
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.kv_cache import BlockPool, KVCacheError, PrefixCache
+from ray_tpu_torch.serve.kv_transfer import KVTransferError
 from ray_tpu_torch.serve.llm import KVExport, LLMDeployment, LLMEngine
 from ray_tpu_torch.serve.multiplex import (ModelRegistry,
                                            MultiplexedLLMDeployment,
@@ -66,6 +72,9 @@ __all__ = [
     "MultiplexedLLMDeployment",
     "SpeculativeLLMDeployment",
     "SpeculativeLLMEngine",
+    "DisaggHandle",
+    "deploy_disagg",
+    "KVTransferError",
     "BlockPool",
     "KVCacheError",
     "PrefixCache",

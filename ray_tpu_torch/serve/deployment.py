@@ -46,8 +46,8 @@ class Deployment:
         self.config = config or DeploymentConfig()
         if self.config.compiled:
             raise NotImplementedError(
-                "compiled deployments need dag/ and experimental/, which "
-                "are not ported yet (ROADMAP.md queue 1 item 2)")
+                "compiled deployments need dag/, which is not ported yet "
+                "(ROADMAP.md queue 1 item 2)")
 
     def options(self, *, name: Optional[str] = None,
                 num_replicas: Optional[int] = None,

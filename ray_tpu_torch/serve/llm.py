@@ -31,7 +31,12 @@ and streams its tokens (the colocated role).
 - Disaggregated serving, the engine half: ``submit(prefill_only=True)``
   emits a :class:`KVExport` (the first token and the prompt's KV blocks)
   in place of the stream, and :meth:`LLMEngine.adopt` admits such a
-  request on another engine.
+  request on another engine. Live-session migration:
+  :meth:`LLMEngine.begin_migration` marks every decoding session, and the
+  loop thread exports each one (its cached KV gathered through the same
+  captured ``serve::gather_kv_blocks`` program) at the top of its next
+  step. ``LLMDeployment.prefill_export`` / ``adopt_stream`` /
+  ``drain_sessions`` ship those payloads over ``serve/kv_transfer.py``.
 - Telemetry, the reference's names: TTFT and TPOT histograms observed at
   each emit; KV blocks free and used, the pool's in-flight, queued and
   used fraction sampled after each step; the prefix cache's hit, miss and
@@ -257,8 +262,9 @@ class LLMEngine:
         self._lock = threading.Lock()
         self._pending: List[_Request] = []
         self._slots: List[Optional[_Request]] = [None] * max_slots
-        # the reference's keys; "migrated_out" stays 0 until session
-        # migration is ported
+        # live sessions marked for export (begin_migration), with the
+        # queue each one's payload goes to; the loop thread services them
+        self._migrations: List[tuple] = []
         self.stats = {"steps": 0, "tokens_generated": 0,
                       "max_concurrent": 0, "requests": 0,
                       "prefix_hit_tokens": 0, "deadline_drops": 0,
@@ -725,6 +731,7 @@ class LLMEngine:
         token, or up to ``prefill_chunk`` prompt tokens), route new tokens
         to their requests. Returns True if any slot is active or requests
         are waiting."""
+        self._process_migrations()
         active_now, have_pending = self._sweep_and_admit()
         if active_now == 0:
             self._sample_gauges()
@@ -811,6 +818,84 @@ class LLMEngine:
             self._release_blocks(req, insert=True)
         req.emit(None)
         self._slots[i] = None
+
+    # -- live-session migration --------------------------------------------
+
+    def begin_migration(self) -> List[tuple]:
+        """Mark every live DECODING session for export off this engine.
+        Returns ``[(request, reply_queue)]``; the loop thread services each
+        entry at the top of its next step, putting the export payload dict,
+        ``None`` (the session finished on its own before the export ran),
+        or the exception that killed the export. Thread-safe; called by the
+        deployment's drain path, not the loop thread.
+
+        Only sessions past prefill with at least one sampled token qualify:
+        a still-prefilling request is re-prefilled elsewhere by the
+        ordinary retry path at the same cost."""
+        if not self.paged:
+            raise ValueError("session migration requires a paged engine "
+                             "(KV export is block-granular)")
+        out: List[tuple] = []
+        with self._lock:
+            for r in self._slots:
+                if (r is None or r.cancelled or r.prefill_only
+                        or r.consumed < len(r.prompt) or not r.gen_tokens):
+                    continue
+                reply: "queue.Queue[Any]" = queue.Queue()
+                self._migrations.append((r, reply))
+                out.append((r, reply))
+        return out
+
+    def _process_migrations(self) -> None:
+        """Service pending session exports on the loop thread (top of step,
+        BEFORE the advance: the migrating slot must not decode a token its
+        export would then miss)."""
+        with self._lock:
+            if not self._migrations:
+                return
+            batch, self._migrations = self._migrations, []
+        for req, reply in batch:
+            # finished / cancelled between the mark and this step: its
+            # blocks are released and its consumer has the whole stream
+            with self._lock:
+                gone = req.cancelled or req not in self._slots
+            if gone:
+                reply.put(None)
+                continue
+            try:
+                reply.put(self._export_session(req))
+            except BaseException as e:  # noqa: BLE001 - ships to the drain
+                reply.put(e)
+
+    def _export_session(self, req: _Request) -> Dict[str, Any]:
+        """Gather a live decoding session's cached KV ([L, nb, bs, kvh, hd]
+        per tensor, positions 0..pos-1, to the host) and retire its slot.
+        The cache covers exactly the FED tokens — the prompt and every
+        sampled token but the newest (``last_token`` is sampled, not yet
+        fed) — so the destination adopts with prompt = the fed transcript
+        and first_token = last_token, and decoding continues token-exact.
+        The ids pad to a power-of-two bucket as in
+        :meth:`_emit_prefill_export` (one capture a bucket)."""
+        nb = self.pool.blocks_for_tokens(req.pos)
+        bucket = min(_next_pow2(nb), self._tbl_width)
+        ids = req.table[:nb] + [req.table[nb - 1]] * (bucket - nb)
+        kv_dev = self._gather_fn(self._cache, self._ids(ids))
+        kv = {name: kv_dev[name][:, :nb].cpu() for name in ("k", "v")}
+        fed = list(map(int, req.prompt)) + req.gen_tokens[:-1]
+        with self._lock:
+            self._release_blocks(req, insert=True)
+            self._slots = [None if r is req else r for r in self._slots]
+        self.stats["migrated_out"] += 1
+        return {
+            "kv": kv,
+            "fed_tokens": fed,
+            "last_token": int(req.last_token),
+            "pos": int(req.pos),
+            "generated": int(req.generated),
+            "max_new_tokens": int(req.max_new_tokens),
+            "eos": req.eos,
+            "block_size": self.pool.block_size,
+        }
 
     def _fill_paged(self) -> Dict[str, np.ndarray]:
         """The step's inputs on the host: decoding slots feed 1 token,
@@ -978,9 +1063,12 @@ class LLMDeployment:
     :class:`SLOConfig`) arms admission shedding; per-request ``deadline_s``
     bounds queueing AND streaming.
 
-    The disaggregated roles' entry points (``prefill_export``,
-    ``adopt_stream``) and ``drain_sessions`` need ``serve/kv_transfer.py``
-    and the device channel, and raise until they are ported.
+    ``role="prefill"`` / ``"decode"`` make the replica one pool of a
+    disaggregated deployment (``serve/disagg.py``): ``prefill_export``
+    prefills a prompt and ships its KV blocks to a decode replica,
+    ``adopt_stream`` adopts them and streams, and ``drain_sessions``
+    migrates every live decode session to a peer, all over
+    ``serve/kv_transfer.py``.
     """
 
     def __init__(self, model="llama-debug", *, max_slots: int = 8,
@@ -1011,6 +1099,10 @@ class LLMDeployment:
         self._error: Optional[BaseException] = None
         self._wake = threading.Event()
         self._stop = False
+        # the KV-transfer planes exist only on replicas that ship or adopt
+        self._kv_sender = None
+        self._kv_receiver = None
+        self._xfer_lock = threading.Lock()
         self._ident: Optional[Dict[str, str]] = None
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-decode-loop")
@@ -1160,7 +1252,7 @@ class LLMDeployment:
             if stream_span is not None:
                 stream_span.finish({"tokens": produced})
 
-    # -- disaggregated prefill/decode and drain: not ported yet -----------
+    # -- disaggregated prefill/decode ------------------------------------
 
     def identity(self) -> Dict[str, str]:
         """This replica's identity: actor id + node id. Cached once a
@@ -1182,30 +1274,163 @@ class LLMDeployment:
                                "role": self.engine.role}
         return self._ident
 
+    def _max_payload_bytes(self) -> int:
+        c = self.engine._cache["k"]
+        per_block = (c.element_size() * math.prod(c.shape[2:])
+                     * int(c.shape[0]) * 2)
+        return per_block * self.engine._tbl_width
+
+    def _sender(self):
+        from ray_tpu_torch.serve.kv_transfer import KVSender
+
+        with self._xfer_lock:
+            if self._kv_sender is None:
+                import uuid
+
+                # the actor id when deployed; a process-unique fallback in
+                # an in-process harness — ring names must never collide
+                # across senders on one node
+                src = self.identity()["actor"] or uuid.uuid4().hex[:12]
+                self._kv_sender = KVSender(
+                    src, max_payload_bytes=self._max_payload_bytes())
+            return self._kv_sender
+
+    def _same_host(self, dst: Dict[str, Any]) -> bool:
+        return bool(dst.get("dst_node")) and \
+            dst["dst_node"] == self.identity()["node"]
+
     def prefill_export(self, prompt_tokens, transfer: Dict[str, Any],
-                       deadline_s: Optional[float] = None):
-        """Prefill-pool entry point: ships the prompt's KV blocks to a
-        decode replica. Not ported yet."""
-        raise NotImplementedError(
-            "prefill_export ships KV over serve/kv_transfer.py and the "
-            "device channel, which are not ported yet (ROADMAP.md queue 1 "
-            "item 2)")
+                       deadline_s: Optional[float] = None) -> Dict[str, Any]:
+        """Prefill-pool entry point: run chunked prefill, then ship the
+        prompt's KV blocks toward the decode replica named by ``transfer``
+        ({req, dst, dst_node}) and return the transfer descriptor (the
+        first token in its meta). The payload moves over a DeviceChannel
+        ring when both replicas share ``dst_node``, else through the
+        object store."""
+        stall_timeout = float(_knobs.get("llm_stall_timeout_s"))
+        q: "queue.Queue[Any]" = queue.Queue()
+        req = self.engine.submit(prompt_tokens, 1, q.put_nowait,
+                                 deadline_s=deadline_s, prefill_only=True)
+        self._wake.set()
+        export = None
+        wait = (stall_timeout if deadline_s is None
+                else min(stall_timeout, deadline_s))
+        try:
+            while True:
+                tok = q.get(timeout=wait)
+                if isinstance(tok, KVExport):
+                    export = tok
+                    continue
+                if tok is None:
+                    break
+                if isinstance(tok, BaseException):
+                    raise tok
+        except queue.Empty:
+            raise TimeoutError(
+                f"prefill produced no export for {wait:.0f}s"
+                + (f" (loop error: {self._error!r})" if self._error else ""))
+        finally:
+            self.engine.cancel(req)
+        if export is None:
+            raise RuntimeError("prefill finished without a KV export")
+        return self._sender().ship(export, req_id=transfer["req"],
+                                   dst_id=transfer["dst"],
+                                   same_host=self._same_host(transfer))
 
     def adopt_stream(self, prompt_tokens, desc: Dict[str, Any],
                      max_new_tokens: int = 16, eos: Optional[int] = None,
                      deadline_s: Optional[float] = None):
-        """Decode-pool entry point: adopts shipped KV blocks and streams.
-        Not ported yet."""
-        raise NotImplementedError(
-            "adopt_stream fetches KV over serve/kv_transfer.py, which is "
-            "not ported yet (ROADMAP.md queue 1 item 2)")
+        """Decode-pool entry point: fetch the shipped KV-block batch named
+        by ``desc``, adopt it into this engine's pool (the loop thread
+        scatters it onto the device with one host-to-device copy), and
+        stream the tokens, the first one (sampled by prefill) included."""
+        from ray_tpu_torch.serve.kv_transfer import KVReceiver
+
+        with self._xfer_lock:
+            if self._kv_receiver is None:
+                self._kv_receiver = KVReceiver()
+        q: "queue.Queue[Any]" = queue.Queue()
+
+        def submit():
+            timeout = 30.0 if deadline_s is None else min(30.0, deadline_s)
+            meta, kv = self._kv_receiver.fetch(desc, timeout=timeout)
+            return self.engine.adopt(prompt_tokens, kv, meta["token"],
+                                     max_new_tokens, q.put_nowait, eos=eos,
+                                     deadline_s=deadline_s)
+
+        return self._token_stream(q, submit, len(prompt_tokens),
+                                  max_new_tokens, deadline_s)
+
+    # -- drain: migrate live sessions instead of re-prefilling -------------
 
     def drain_sessions(self, destinations: List[Dict[str, Any]],
                        timeout_s: float = 30.0) -> Dict[str, Any]:
-        """Preemption drain: migrates live sessions. Not ported yet."""
-        raise NotImplementedError(
-            "drain_sessions migrates sessions over serve/kv_transfer.py, "
-            "which is not ported yet (ROADMAP.md queue 1 item 2)")
+        """Preemption drain: ship every live decode session's KV blocks to
+        a surviving replica over the transfer plane, then hand each
+        session's stream a migration marker so the caller splices the
+        continuation — no re-prefill, token-exact under greedy sampling.
+        ``destinations`` is a round-robin candidate list of
+        ``{"dst": actor_id_hex, "dst_node": node_id|None}``.
+
+        The marker rides the ordinary token stream (a dict is not a
+        token): :class:`~ray_tpu_torch.serve.disagg.DisaggHandle`
+        intercepts it and calls ``adopt_stream`` on the destination with
+        the fed-token transcript; the handoff token that adoption emits
+        again is dropped there."""
+        import uuid
+
+        from ray_tpu_torch.util import events
+
+        if not destinations:
+            raise ValueError("drain needs at least one destination replica")
+        pending = self.engine.begin_migration()
+        self._wake.set()
+        me = self.identity()["actor"] or ""
+        events.emit("serve_drain", replica=me, role=self.engine.role,
+                    sessions=len(pending), destinations=len(destinations))
+        migrated, failed, finished = 0, 0, 0
+        sender = self._sender() if pending else None
+        for n, (req, reply) in enumerate(pending):
+            dst = destinations[n % len(destinations)]
+            try:
+                payload = reply.get(timeout=timeout_s)
+                if payload is None:
+                    finished += 1   # completed on its own before export
+                    continue
+                if isinstance(payload, BaseException):
+                    raise payload
+                req_id = uuid.uuid4().hex
+                desc = sender.ship(
+                    KVExport(token=payload["last_token"],
+                             prompt_len=payload["pos"],
+                             block_size=payload["block_size"],
+                             kv=payload["kv"]),
+                    req_id=req_id, dst_id=dst["dst"],
+                    same_host=self._same_host(dst))
+                # adoption emits the handoff token again (the handle drops
+                # it), so the destination owes the remaining budget + 1
+                req.emit({"__migrate__": {
+                    "desc": desc, "dst": dst["dst"],
+                    "prompt_tokens": payload["fed_tokens"],
+                    "first_token": payload["last_token"],
+                    "max_new_tokens": (payload["max_new_tokens"]
+                                       - payload["generated"] + 1),
+                    "eos": payload["eos"],
+                }})
+                req.emit(None)
+                migrated += 1
+                events.emit("serve_session_migrated", replica=me,
+                            dst=dst["dst"], req=req_id,
+                            kv_tokens=payload["pos"],
+                            generated=payload["generated"])
+            except BaseException as e:  # noqa: BLE001 - per session
+                failed += 1
+                try:
+                    req.emit(e)
+                except Exception:  # a broken sink must not stop the drain
+                    pass
+        return {"sessions": len(pending), "migrated": migrated,
+                "failed": failed, "finished": finished}
 
     # -- introspection -------------------------------------------------------
 
@@ -1244,14 +1469,31 @@ class LLMDeployment:
         if self._error is not None:
             raise RuntimeError(f"llm decode loop error: {self._error!r}")
 
+    def _close_planes(self) -> None:
+        """Unlink the rings this replica created and close the ones it
+        attached to. Outside a runtime the rings carry the unswept
+        ``nosess`` prefix, so an in-process harness must close."""
+        with self._xfer_lock:
+            planes, self._kv_sender, self._kv_receiver = (
+                (self._kv_sender, self._kv_receiver), None, None)
+        for plane in planes:
+            if plane is not None:
+                plane.close()
+
     def close(self) -> None:
         """Stop the step loop and wait for it to leave its step (not from
-        the loop thread itself), so that the engine is idle afterwards."""
+        the loop thread itself), so that the engine is idle afterwards;
+        then close the KV-transfer planes."""
         self._stop = True
         self._wake.set()
         if threading.current_thread() is not self._thread:
             self._thread.join(timeout=60.0)
+        self._close_planes()
 
     def __del__(self):  # pragma: no cover - GC-time best effort
         self._stop = True
-        self._wake.set()
+        try:
+            self._wake.set()
+            self._close_planes()
+        except Exception:  # __init__ failed before it set them
+            pass

@@ -4,7 +4,7 @@ PyTorch versions, and the CUDA autograd path running them. The serving
 engine's programs captured as CUDA graphs (``util.device_plane``) against
 the same programs run eagerly; a param swap releasing the step's graph
 pool, and ``remat_policy="save_attn"`` running the forward kernel once a
-layer.
+layer; KV blocks through the device channel and back onto the card.
 
 Marked ``cuda``; each test skips (with the reason) where no GPU is
 present. This file imports no JAX, so on a GPU machine without JAX it runs
@@ -788,6 +788,46 @@ def test_save_attn_runs_the_forward_kernel_once_a_layer(cuda):
     assert torch.equal(out["full"][1], out["save_attn"][1])
     for k, g in out["full"][2].items():
         assert torch.equal(g, out["save_attn"][2][k]), k
+
+
+def test_device_channel_carries_card_kv_blocks_bitwise(cuda):
+    """KV blocks gathered on the card, written to the device channel (one
+    device-to-host copy into the slot), read back (a bare tensor aliases
+    the slot, a ``TensorWithMeta`` is a copy) and scattered onto the card
+    again through ``scatter_kv_blocks``: bitwise the original blocks."""
+    import uuid
+
+    from ray_tpu_torch.experimental.device_channel import (DeviceChannel,
+                                                           TensorWithMeta)
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shape = (4, 8, 16, 2, 128)              # [L, blocks, bs, kvh, hd]
+    src = {n: torch.randn(shape, generator=gen, device=cuda,
+                          dtype=torch.bfloat16) for n in ("k", "v")}
+    kv = models.gather_kv_blocks(src, torch.tensor([3, 1, 4], device=cuda))
+    name = f"test-card-{uuid.uuid4().hex[:8]}"
+    ch = DeviceChannel(name, capacity=1 << 22, create=True, slots=2)
+    try:
+        reader = DeviceChannel(name, create=False)
+        ch.write(kv["k"], timeout=10)
+        ch.write(TensorWithMeta({"req": "r"}, kv["v"]), timeout=10)
+        got_k = reader.read(timeout=10)
+        got_v = reader.read(timeout=10)
+        assert got_k.device.type == "cpu" and got_k.dtype == torch.bfloat16
+        assert got_v.meta == {"req": "r"}
+        dst = {n: torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+               for n in ("k", "v")}
+        models.scatter_kv_blocks(
+            dst, torch.tensor([0, 2, 5, 8], device=cuda),
+            {"k": torch.cat([got_k, got_k[:, :1]], 1).to(cuda),
+             "v": torch.cat([got_v.tensor, got_v.tensor[:, :1]], 1).to(cuda)})
+        for n in ("k", "v"):
+            assert torch.equal(dst[n][:, [0, 2, 5]].view(torch.int16),
+                               src[n][:, [3, 1, 4]].view(torch.int16)), n
+        del got_k
+        reader.close()
+    finally:
+        ch.unlink()
 
 
 def test_failed_capture_raises_without_a_fallback(cuda):

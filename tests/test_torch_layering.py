@@ -219,3 +219,30 @@ def test_walk_covers_the_multiplexed_slice(rel, expected):
     assert _forbidden_imports(path) == []
     assert _unresolved_port_imports(path) == []
     assert _reference_module_strings(path) == []
+
+
+@pytest.mark.parametrize("rel,expected", [
+    ("ray_tpu_torch/experimental/channel.py",
+     {"ray_tpu_torch.core.serialization", "ray_tpu_torch.util.metric_defs"}),
+    ("ray_tpu_torch/experimental/device_channel.py",
+     {"torch", "ray_tpu_torch.experimental.channel"}),
+    # the transfer plane's channel, store and runtime-context uses sit in
+    # function bodies: the walk must see them
+    ("ray_tpu_torch/serve/kv_transfer.py",
+     {"ray_tpu_torch", "ray_tpu_torch.serve.llm",
+      "ray_tpu_torch.experimental.device_channel",
+      "ray_tpu_torch.experimental.channel", "ray_tpu_torch.util.failpoints",
+      "ray_tpu_torch.core.runtime_context"}),
+    ("ray_tpu_torch/serve/disagg.py",
+     {"ray_tpu_torch", "ray_tpu_torch.serve.handle",
+      "ray_tpu_torch.serve.admission", "ray_tpu_torch.core.exceptions",
+      "ray_tpu_torch.util.tracing"}),
+    ("ray_tpu_torch/serve/llm.py",
+     {"ray_tpu_torch.serve.kv_transfer", "ray_tpu_torch.util.events"}),
+])
+def test_walk_covers_the_disaggregated_slice(rel, expected):
+    path = os.path.join(ROOT, rel)
+    assert expected <= _imported_modules(path)
+    assert _forbidden_imports(path) == []
+    assert _unresolved_port_imports(path) == []
+    assert _reference_module_strings(path) == []

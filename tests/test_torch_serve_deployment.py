@@ -168,18 +168,3 @@ def test_llm_deployment_streams_match_jax_generate(runtime, reference,
         assert rows and rows[0]["calls"] >= 1
     serve.delete(name)
 
-
-def test_disaggregated_entry_points_raise():
-    dep = serve.LLMDeployment(_cfg(TM), max_slots=2, max_len=32,
-                              device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            dep.prefill_export([1, 2, 3], {"req": "r", "dst": "d"})
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            list(dep.adopt_stream([1, 2, 3], {}))
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            dep.drain_sessions([{"dst": "d"}])
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            serve.deployment(compiled=True)(lambda x: x)
-    finally:
-        dep.close()
