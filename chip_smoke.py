@@ -53,7 +53,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    handle and the HTTP proxy's ``?stream=1`` (the bf16 bar; TTFT, TPOT
    and tokens/s beside this process's engine under the same requests),
    and has a worker actor repeat the Llama-3-8B forward (bitwise equal,
-   through kernel 1). Telemetry: the engine's metrics account for the
+   through kernel 1). The compiled execution plane, from the same driver:
+   a compiled DAG whose stage A is that actor (its logits as a CUDA tensor
+   on a tensor edge) and stage B a second actor on the card (the logits
+   and their argmax on a tensor edge back), 4 invocations at
+   ``max_in_flight=2`` taken out of order, bitwise the forward's, the
+   driver's CUDA never initialised and no ring left after teardown; then
+   ``ScoreOnCard`` (``compiled=True``, Llama-3-8B on one replica) deployed
+   by ``config_api.deploy_config`` from a dict answers the 8 prompts one at
+   a time through the handle and the HTTP proxy (both on the compiled
+   plane), 16 callers at once and 200 no-op calls: every answer's top-5
+   ids and logits bitwise this process's forward, kernel 1 launched every
+   layer of every request (round trips p50 / p90 beside the replica's
+   forward ms, the tensor edge's, ``rtpu_dag_executions_total``). Telemetry: the engine's metrics account for the
    serving workload (TTFT once a request, TPOT once each later token, KV
    free + used = total, the prefix counters equal the trie's), one
    ``serve::step`` span a step with tracing on, one ``jit_recompile``
@@ -98,20 +110,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MFU, the checkpoint's bytes, snapshot, write and copy seconds, death
    to the first resumed step and ``fit()`` to the first report printed);
 8. Gemma-2-9B (all 42 layers, head dim 256, bf16 weights): ``models.forward``
-   at B=1, L=8192 through the kernel at D = 256; the paged and the dense
-   (``paged=False``, at its first 8 layers) engine each answer the 8
-   requests of phase 6 (eager against captured, profiled, as there),
-   greedy tokens held against the kernel-backed forward in bf16 and, at
-   the first 8 layers, in float32;
-   ``models.generate`` (B=2, 256-token prompt, 32 new tokens), its f32
-   tokens held against the f32 forward;
-9. Mistral-7B (all 32 layers, bf16 weights): ``models.generate`` on a
-   4608-token prompt, past the 4096 window, so the ring cache prefills in
-   4096 + 512 chunks; 16 new tokens, the f32 ones held against the f32
+   at B=1, L=8192 through the kernel at D = 256; the paged (at its first 20
+   layers) and the dense (``paged=False``, at its first 8 layers) engine
+   each answer the 8 requests of phase 6 (eager against captured,
+   profiled, as there), greedy tokens held against the kernel-backed
+   forward in bf16 and, at the first 8 layers, in float32;
+   ``models.generate`` at the first 20 layers (B=2, 256-token prompt, 32
+   new tokens), its f32 tokens held against the f32 forward;
+9. Mistral-7B (bf16 weights, its first 16 of 32 layers): ``models.generate``
+   on a 4608-token prompt, past the 4096 window, so the ring cache prefills
+   in 4096 + 512 chunks; 16 new tokens, the f32 ones held against the f32
    forward.
 
-Each phase prints its seconds. The script prints a ``{"kernels": [...]}``
-line, the card line, and last ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds, and the script all of them together. It
+prints a ``{"kernels": [...]}`` line, the card line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -137,6 +150,7 @@ import torch
 from ray_tpu_torch import models
 from ray_tpu_torch.accelerators import gpu
 from ray_tpu_torch.ops import _build, flash_cuda
+from ray_tpu_torch import serve
 from ray_tpu_torch.serve import LLMEngine, SpeculativeLLMEngine
 from ray_tpu_torch.train import TrainLoopHelper, adamw
 from ray_tpu_torch.util import device_plane
@@ -1769,11 +1783,13 @@ SERVE_DEPLOYMENT = "llama3_8b"
 
 
 class ForwardOnCard:
-    """A worker actor (``num_gpus=1`` and the opt-in) that repeats the
-    forward phase's llama3_8b forward in its own process, through kernel 1
-    built from this checkout: returns what the driver's forward is held to
-    bitwise (the last position's logits leave the card as a CUDA tensor
-    and come back through the object store on the CPU)."""
+    """A worker actor (half the GPU resource and the opt-in) that repeats
+    the forward phase's llama3_8b forward in its own process, through
+    kernel 1 built from this checkout: returns what the driver's forward is
+    held to bitwise (the last position's logits leave the card as a CUDA
+    tensor and come back through the object store on the CPU). It keeps
+    the weights and tokens: ``last_logits`` is stage A of the compiled
+    phase's DAG."""
 
     def run(self, name, b, l, seed):
         # imported here: the class travels by value, and a global ``torch``
@@ -1785,6 +1801,7 @@ class ForwardOnCard:
         torch.backends.cudnn.allow_tf32 = False
         cfg, params, toks, logits, first_s, launches = _forward_logits(
             name, b, l, seed)
+        self.cfg, self.params, self.toks = cfg, params, toks
         with torch.inference_mode():
             sha, last = _sha256(logits), logits[:, -1].clone()
         return dict(sha256=sha, last=last, launches=launches,
@@ -1792,6 +1809,83 @@ class ForwardOnCard:
                     cuda_initialized_before=before,
                     device=torch.cuda.get_device_name(0),
                     pid=os.getpid())
+
+    def last_logits(self, _invocation):
+        """The same forward again; its last position's logits (f32) as a
+        CUDA tensor, for a tensor edge."""
+        import torch
+
+        with torch.inference_mode():
+            logits, _ = models.forward(self.params, self.toks, self.cfg)
+            return logits[:, -1].clone()
+
+
+class RelayOnCard:
+    """Stage B of the compiled phase's DAG: an actor with a fraction of the
+    GPU resource that takes stage A's logits on the card (the exec loop
+    moves a tensor-edge input there) and returns them, with their argmax,
+    on a tensor edge to the driver."""
+
+    def relay(self, logits):
+        from ray_tpu_torch.experimental.device_channel import TensorWithMeta
+
+        return TensorWithMeta({"device": logits.device.type,
+                               "argmax": logits.argmax(-1).tolist()}, logits)
+
+
+def _score(cfg, params, prompt_tokens, device="cuda"):
+    """``models.forward`` on one prompt ([1, len]): the last position's
+    top-5 ids and logits as lists, the forward's ms and its kernel-1
+    launches (the compiled deployment's answer, and what it is held to)."""
+    toks = torch.tensor([prompt_tokens], device=device)
+    with torch.inference_mode():
+        before = flash_cuda.launches
+        t0 = time.perf_counter()
+        logits, _ = models.forward(params, toks, cfg)
+        top = torch.topk(logits[0, -1].float(), 5)
+        ids, vals = top.indices.tolist(), top.values.tolist()
+        ms = (time.perf_counter() - t0) * 1e3
+    return dict(ids=ids, logits=vals, forward_ms=ms,
+                launches=flash_cuda.launches - before)
+
+
+class ScoreOnCard:
+    """A user deployment (``compiled=True``, one replica on the card):
+    llama3_8b at full width and depth, bf16 weights drawn on the replica
+    from the seed, scoring a prompt per request."""
+
+    def __init__(self, model="llama3-8b", seed=0):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg, self.params, _ = _bf16_weights(model, seed)
+
+    def __call__(self, prompt_tokens):
+        return _score(self.cfg, self.params, prompt_tokens)
+
+    def describe(self):
+        return None
+
+
+# deployed by ``config_api.deploy_config(COMPILED_CONFIG)``, which imports
+# this module by name (workers import it from the checkout too); the
+# config's override raises max_ongoing_requests, and so the DAG's
+# max_in_flight, from 2 to 8
+COMPILED_DEPLOYMENT = "llama3_8b_compiled"
+SCORE_APP = serve.deployment(
+    ScoreOnCard, name=COMPILED_DEPLOYMENT, compiled=True,
+    max_ongoing_requests=2,
+    ray_actor_options=dict(ON_CARD, num_cpus=0)).bind(seed=0)
+COMPILED_CONFIG = {"applications": [{
+    "name": COMPILED_DEPLOYMENT, "import_path": "chip_smoke:SCORE_APP",
+    "route_prefix": "/score",
+    "deployments": [{"name": COMPILED_DEPLOYMENT,
+                     "max_ongoing_requests": 8}]}]}
+# stage A keeps half the GPU resource so stage B fits beside it
+FORWARD_ON_CARD = dict(ON_CARD, num_gpus=0.5, max_concurrency=2)
+RELAY_ON_CARD = dict(ON_CARD, num_gpus=0.25, max_concurrency=2)
+NOOP_CALLS = 200
 
 
 def _stream_stats(stamps, n_tokens):
@@ -1860,7 +1954,6 @@ def _mux_through_framework(cfg, prompts, budget, seed, used_before_mib):
     process's were), the requests one at a time through
     ``handle.options(model_id=...)``, then the replica's load report and
     registry snapshot."""
-    from ray_tpu_torch import serve
     from ray_tpu_torch.serve import MultiplexedLLMDeployment
     from ray_tpu_torch.util import state
 
@@ -1901,6 +1994,178 @@ def _mux_through_framework(cfg, prompts, budget, seed, used_before_mib):
     return out
 
 
+def _pcts(xs, scale=1e3):
+    """p50 / p90 of a list of seconds, in ms."""
+    return dict(p50=float(np.percentile(xs, 50)) * scale,
+                p90=float(np.percentile(xs, 90)) * scale, n=len(xs))
+
+
+def _overhead(rtts, answers):
+    """p50 / p90 ms of what a round trip adds to the replica's forward."""
+    return _pcts([t - a["forward_ms"] / 1e3 for t, a in zip(rtts, answers)])
+
+
+def _dag_executions():
+    from ray_tpu_torch.util import metric_defs
+
+    return sum(v for _, v in metric_defs.get(
+        "rtpu_dag_executions_total")._samples())
+
+
+def _post_json(port, route, body):
+    """One non-stream POST to the proxy: its decoded ``result``."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", f"/{route}", body=json.dumps(body))
+        resp = conn.getresponse()
+        raw = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"proxy answered {resp.status}: "
+                                 f"{raw[:200]!r}")
+        return json.loads(raw)["result"]
+    finally:
+        conn.close()
+
+
+def _compiled_through_framework(cfg, prompts, fwd_actor):
+    """The compiled execution plane on the card, from the card-free driver.
+
+    First a compiled DAG with tensor edges: stage A is ``fwd_actor`` (the
+    ``ForwardOnCard`` actor, its weights kept from the forward check),
+    returning the last position's logits as a CUDA tensor; stage B a
+    ``RelayOnCard`` actor beside it, taking them on the card and returning
+    them with their argmax. 4 invocations at ``max_in_flight=2``, their
+    futures taken out of order; teardown, then no channel of the session
+    may be left. Both actors then leave the card (the GPU resource is one
+    card): ``ScoreOnCard`` deployed through ``config_api.deploy_config``
+    (``compiled=True``, one replica, the config raising
+    ``max_ongoing_requests`` to 8) answers the 8 prompts one at a time
+    through the handle and then through the HTTP proxy's non-stream POST
+    (both on the compiled plane), 16 callers at once through the handle,
+    and ``NOOP_CALLS`` no-op ``describe()`` calls. Returns every answer and
+    the round trips; the checking process holds the answers."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.serve import config_api
+    from ray_tpu_torch.serve.handle import CompiledDeploymentResponse
+
+    session = ray_tpu_torch.core.runtime._get_runtime().session
+    out = dict(executions_before=_dag_executions())
+    relay = ray_tpu_torch.remote(RelayOnCard).options(
+        **RELAY_ON_CARD).remote()
+    with InputNode() as inp:
+        stage_a = fwd_actor.last_logits.bind(inp).with_tensor_transport()
+        node = relay.relay.bind(stage_a).with_tensor_transport()
+    payload = 2 * cfg.vocab_size * 4          # [2, vocab] f32 logits
+    t0 = time.perf_counter()
+    dag = node.experimental_compile(max_in_flight=2,
+                                    buffer_size_bytes=payload + (64 << 10))
+    edge, order = {}, []
+    try:
+        futs = [dag.execute(i, timeout=300) for i in range(2)]
+        for i in (1, 0):
+            edge[i] = futs[i].get(timeout=300)
+            order.append(i)
+        futs += [dag.execute(i, timeout=300) for i in range(2, 4)]
+        for i in (3, 2):
+            edge[i] = futs[i].get(timeout=300)
+            order.append(i)
+        out["edge_first_wave_s"] = time.perf_counter() - t0
+        # steady state: one invocation at a time, each its round trip
+        rtt = []
+        for i in range(4, 8):
+            t = time.perf_counter()
+            edge[i] = dag.execute(i, timeout=300).get(timeout=300)
+            rtt.append(time.perf_counter() - t)
+        out["edge_rtt"] = _pcts(rtt)
+    finally:
+        dag.teardown()
+    out["edge"] = {i: dict(tensor=r.tensor, **r.meta)
+                   for i, r in edge.items()}
+    out["edge_order"] = order
+    out["edge_channels_left"] = glob.glob(f"/dev/shm/rtpu-chan-{session}-*")
+    out["cuda_after_edge"] = torch.cuda.is_initialized()
+    ray_tpu_torch.kill(relay)
+    ray_tpu_torch.kill(fwd_actor)
+
+    t0 = time.perf_counter()
+    out["deployed"] = config_api.deploy_config(COMPILED_CONFIG)
+    out["deploy_s"] = time.perf_counter() - t0
+    handle = serve.get_deployment_handle(COMPILED_DEPLOYMENT)
+    seq, rtt = [], []
+    for p in prompts:
+        t = time.perf_counter()
+        resp = handle.remote(p)
+        if not isinstance(resp, CompiledDeploymentResponse):
+            raise AssertionError(f"the handle did not ride the compiled "
+                                 f"plane: {type(resp).__name__}")
+        seq.append(resp.result(timeout_s=600))
+        rtt.append(time.perf_counter() - t)
+        if len(seq) == 1:
+            out["deploy_to_first_answer_s"] = time.perf_counter() - t0
+    # the first answer waits for the replica's weights and starts its DAG
+    out["first_answer_s"] = rtt[0]
+    out["handle"], out["handle_rtt"] = seq, _pcts(rtt[1:])
+    out["handle_overhead"] = _overhead(rtt[1:], seq[1:])
+    out["dags"] = {dep: dict(max_in_flight=d._max_in_flight,
+                             channels=len(d._channels))
+                   for dep, d in handle._dags.values()}
+    proxy = serve.start_http_proxy(port=0)
+    before, http_res, rtt = _dag_executions(), [], []
+    for p in prompts:
+        t = time.perf_counter()
+        http_res.append(_post_json(proxy.port, "score", p))
+        rtt.append(time.perf_counter() - t)
+    out["http"], out["http_rtt"] = http_res, _pcts(rtt)
+    out["http_overhead"] = _overhead(rtt, http_res)
+    out["http_executions"] = _dag_executions() - before
+    proxy.stop()
+    many, stamps, errors = [None] * (2 * len(prompts)), [None] * (
+        2 * len(prompts)), []
+
+    def call(i):
+        try:
+            t = time.perf_counter()
+            many[i] = handle.remote(prompts[i % len(prompts)]).result(
+                timeout_s=600)
+            stamps[i] = time.perf_counter() - t
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(many))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    out["concurrent_wall_s"] = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent compiled calls failed: "
+                             f"{errors[:3]}")
+    out["concurrent"], out["concurrent_rtt"] = many, _pcts(stamps)
+    rtt = []
+    for _ in range(NOOP_CALLS):
+        t = time.perf_counter()
+        if handle.describe.remote().result(timeout_s=60) is not None:
+            raise AssertionError("describe() answered something")
+        rtt.append(time.perf_counter() - t)
+    out["noop_rtt"] = _pcts(rtt)
+    out["executions"] = _dag_executions() - out["executions_before"]
+    serve.shutdown()
+    # the next phase's serve.run must find no controller on its way out
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        try:
+            ray_tpu_torch.get_actor("SERVE_CONTROLLER")
+        except ValueError:
+            break
+        time.sleep(0.2)
+    out["channels_left"] = glob.glob(f"/dev/shm/rtpu-chan-{session}-*")
+    out["cuda_after"] = torch.cuda.is_initialized()
+    return out
+
+
 def serve_runtime_driver(out_path, seed=0, mux_budget=None):
     """The driver of the runtime phase, in a process of its own that never
     touches the card: ``ray_tpu_torch.init()``, ``LLMDeployment`` on a
@@ -1913,7 +2178,7 @@ def serve_runtime_driver(out_path, seed=0, mux_budget=None):
     weights where ``/dev/shm`` can hold them). Writes what it saw to
     ``out_path`` (``torch.save``) for the checking process."""
     import ray_tpu_torch
-    from ray_tpu_torch import _native, serve
+    from ray_tpu_torch import _native
     from ray_tpu_torch.serve import LLMDeployment
     from ray_tpu_torch.util import state
 
@@ -2017,12 +2282,16 @@ def serve_runtime_driver(out_path, seed=0, mux_budget=None):
                    for p in report["processes"]])
     proxy.stop()
     serve.shutdown()
-    actor = ray_tpu_torch.remote(ForwardOnCard).options(**ON_CARD).remote()
+    actor = ray_tpu_torch.remote(ForwardOnCard).options(
+        **FORWARD_ON_CARD).remote()
     out["forward"] = ray_tpu_torch.get(actor.run.remote("llama3-8b", 2, 2048,
                                                         seed))
     # a view of the store, which shutdown unmaps
     out["forward"]["last"] = out["forward"]["last"].clone()
-    ray_tpu_torch.kill(actor)
+    t0 = time.perf_counter()
+    out["compiled"] = _compiled_through_framework(cfg, prompts, actor)
+    print(f"[phase] llama3_8b compiled (runtime): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     if mux_budget:
         out["multiplex"] = _mux_through_framework(
             cfg, prompts, mux_budget, seed, used_before_mib)
@@ -2175,10 +2444,95 @@ def phase_serve_runtime(cfg, params, card, fwd_ref, inproc, mux=None,
     if "serve::decode_step_paged" not in rec["device_report"]["programs"]:
         raise AssertionError("the replica's device-plane snapshot never "
                              f"reached the driver: {rec['device_report']}")
+    out_rec["compiled"] = _check_compiled(cfg, params, got["compiled"],
+                                          fwd_ref, prompts, card)
     if mux is not None:
         out_rec["multiplex"] = _check_mux_replica(cfg, got["multiplex"], mux,
                                                   card)
     return out_rec
+
+
+def _check_compiled(cfg, params, got, fwd_ref, prompts, card):
+    """The compiled phase's answers against this process: every
+    ``ScoreOnCard`` answer (handle, HTTP, concurrent) bitwise this
+    process's ``_score`` on the same weights and prompt, through kernel 1
+    in every request; every tensor-edge result bitwise ``fwd_ref["last"]``
+    with the argmax taken on the card; the driver's CUDA never initialised;
+    no channel of the session left."""
+    want = [_score(cfg, params, p) for p in prompts]
+    keys = ("ids", "logits")
+
+    def same(a, b):
+        return all(a[k] == b[k] for k in keys)
+
+    routes = {"handle": got["handle"], "http": got["http"],
+              "concurrent": got["concurrent"]}
+    bad = {route: [i for i, r in enumerate(res)
+                   if not same(r, want[i % len(want)])]
+           for route, res in routes.items()}
+    launches = sorted({r["launches"] for res in routes.values() for r in res})
+    replica_ms = [r["forward_ms"] for res in routes.values() for r in res]
+    argmax = fwd_ref["last"].cuda().argmax(-1).tolist()
+    edge_bad = [i for i, r in got["edge"].items()
+                if not (torch.equal(r["tensor"].view(torch.int16),
+                                    fwd_ref["last"].view(torch.int16))
+                        and r["device"] == "cuda" and r["argmax"] == argmax)]
+    rec = dict(
+        deploy_s=got["deploy_s"], first_answer_s=got["first_answer_s"],
+        deploy_to_first_answer_s=got["deploy_to_first_answer_s"],
+        dags=got["dags"],
+        handle_rtt_ms=got["handle_rtt"], http_rtt_ms=got["http_rtt"],
+        handle_overhead_ms=got["handle_overhead"],
+        http_overhead_ms=got["http_overhead"],
+        concurrent_rtt_ms=got["concurrent_rtt"],
+        concurrent_wall_s=got["concurrent_wall_s"],
+        replica_forward_ms=_pcts(np.asarray(replica_ms) / 1e3),
+        in_process_forward_ms=_pcts(np.asarray(
+            [w["forward_ms"] for w in want]) / 1e3),
+        noop_rtt_ms=got["noop_rtt"], executions=got["executions"],
+        http_executions=got["http_executions"],
+        edge_rtt_ms=got["edge_rtt"], edge_first_wave_s=got["edge_first_wave_s"],
+        edge_order=got["edge_order"], launches=launches,
+        mismatched=bad, edge_mismatched=edge_bad,
+        cuda_in_driver=[got["cuda_after_edge"], got["cuda_after"]],
+        channels_left=got["edge_channels_left"] + got["channels_left"])
+    print(f"[compiled runtime] llama3_8b {cfg.n_layers} layers bf16, "
+          f"ScoreOnCard (compiled=True) and a tensor-edge DAG: "
+          f"{json.dumps(rec, default=str)} on {card}", flush=True)
+    print(f"[compiled runtime] round trip p50 / p90 ms: handle "
+          f"{rec['handle_rtt_ms']['p50']:.2f} / "
+          f"{rec['handle_rtt_ms']['p90']:.2f} (over the replica's forward "
+          f"{rec['handle_overhead_ms']['p50']:.2f} / "
+          f"{rec['handle_overhead_ms']['p90']:.2f}), HTTP "
+          f"{rec['http_rtt_ms']['p50']:.2f} / {rec['http_rtt_ms']['p90']:.2f}"
+          f" (over {rec['http_overhead_ms']['p50']:.2f} / "
+          f"{rec['http_overhead_ms']['p90']:.2f}), 16 concurrent {rec['concurrent_rtt_ms']['p50']:.2f} / "
+          f"{rec['concurrent_rtt_ms']['p90']:.2f}; the replica's forward "
+          f"{rec['replica_forward_ms']['p50']:.2f} (in process "
+          f"{rec['in_process_forward_ms']['p50']:.2f}); no-op "
+          f"{rec['noop_rtt_ms']['p50']:.3f} / {rec['noop_rtt_ms']['p90']:.3f}"
+          f"; tensor edge {rec['edge_rtt_ms']['p50']:.1f} / "
+          f"{rec['edge_rtt_ms']['p90']:.1f}; rtpu_dag_executions_total "
+          f"+{rec['executions']} on {card}", flush=True)
+    n = len(prompts)
+    if any(bad.values()) or edge_bad or len(got["edge"]) != 8:
+        raise AssertionError(f"compiled phase: answers differ from this "
+                             f"process's forward: {bad}, tensor edge "
+                             f"{edge_bad} of {sorted(got['edge'])}")
+    if launches != [cfg.n_layers]:
+        raise AssertionError(f"compiled phase: kernel 1 launches a request "
+                             f"{launches}, expected {cfg.n_layers}")
+    if (got["http_executions"] != n or got["executions"] !=
+            4 * n + NOOP_CALLS + 8
+            or list(got["dags"].values()) != [dict(max_in_flight=8,
+                                                   channels=2)]):
+        raise AssertionError(f"compiled phase: not every request rode the "
+                             f"compiled plane: {rec}")
+    if any(rec["cuda_in_driver"]) or rec["channels_left"]:
+        raise AssertionError(f"compiled phase: CUDA in the driver "
+                             f"{rec['cuda_in_driver']}, channels left "
+                             f"{rec['channels_left']}")
+    return rec
 
 
 def _check_mux_replica(cfg, got, mux, card):
@@ -2339,7 +2693,6 @@ def _disagg_run(out_path, session, seed, model, device, share, new_tokens,
                 drain_tokens, used_before_mib):
     """``disagg_driver``'s body, once the runtime is up."""
     import ray_tpu_torch
-    from ray_tpu_torch import serve
 
     out = dict(cuda_after_init=torch.cuda.is_initialized(),
                resources=ray_tpu_torch.available_resources())
@@ -2751,6 +3104,11 @@ TRAIN_STEPS = 10
 # gemma2_9b's dense engine runs its first layers only (of 42): the smoke
 # must stay within its time with the multiplexed and save_attn phases
 GEMMA2_DENSE_LAYERS = 8
+# and, with the compiled phase, the paged engine and generate 20 of the
+# 42 (window and global layers alternate: the count must be even) and
+# mistral_7b's generate half of its 32 (each layer has the 4096 window)
+GEMMA2_PAGED_LAYERS = 20
+MISTRAL_GENERATE_LAYERS = 16
 
 
 def gemma2_train_config():
@@ -3227,6 +3585,7 @@ def _phase(label, fn, *args, **kw):
 
 
 def main():
+    t_start = time.perf_counter()
     card = _phase("device", phase_device)
     _phase("build", phase_build)
     fwd = _phase("kernels", phase_kernels)
@@ -3292,23 +3651,27 @@ def main():
     # the dense engine and both float32 checks at a cut depth (views of the
     # first layers): the smoke's time limit
     cut = _draft_of(cfg, params, GEMMA2_DENSE_LAYERS)
+    half = _draft_of(cfg, params, GEMMA2_PAGED_LAYERS)
     for paged in (True, False):
         kind = "paged" if paged else "dense"
-        c, p = (cfg, params) if paged else cut
+        c, p = half if paged else cut
         _phase(f"gemma2_9b serving {kind}", phase_serving, c, p, card,
                paged=paged)
         _phase(f"gemma2_9b serving {kind} f32", phase_greedy_f32, *cut, card,
                paged=paged)
     del cut
-    _phase("gemma2_9b generate", phase_generate, cfg, params, card, b=2,
+    _phase("gemma2_9b generate", phase_generate, *half, card, b=2,
            prompt_len=256, new_tokens=32)
-    del params
+    del half, params
     torch.cuda.empty_cache()
     cfg, params, _ = _bf16_weights("mistral-7b", seed=0)
-    _phase("mistral_7b generate", phase_generate, cfg, params, card, b=1,
+    _phase("mistral_7b generate", phase_generate,
+           *_draft_of(cfg, params, MISTRAL_GENERATE_LAYERS), card, b=1,
            prompt_len=4608, new_tokens=16)
     del params
     torch.cuda.empty_cache()
+    print(f"[smoke] all phases: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     src = "ray_tpu_torch/ops/csrc/"
     d128 = fwd["causal"]
     bwd_main = bwd["train_causal"]

@@ -78,6 +78,9 @@ _knob("pipe_coalesce_us", int, 200,
       "every latency-sensitive send (done/req) piggybacks the pending "
       "casts in its own frame; 0 disables buffering (casts still "
       "piggyback)", "core/worker.py")
+_knob("dag_max_in_flight", int, 8,
+      "default overlapping invocations a compiled DAG admits "
+      "(ring-channel slots = max_in_flight + 1)", "dag/compiled_dag.py")
 _knob("native_pipe", _bool, True,
       "drive each worker control pipe through the GIL-free C++ engine "
       "(framing, batch pack/unpack, send coalescing and refpin "

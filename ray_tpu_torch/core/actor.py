@@ -76,11 +76,14 @@ class ActorMethod:
         )
 
     def bind(self, *args, **kwargs):
-        """A lazy DAG node for this method (reference
-        ``actor.method.bind``): not ported yet."""
-        raise NotImplementedError(
-            "DAG nodes (dag/) are not ported yet (ROADMAP.md queue 1 "
-            "item 2)")
+        """Build a lazy DAG node for this method (reference
+        ``actor.method.bind``, ``python/ray/dag/class_node.py``)."""
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+
+        return ClassMethodNode(
+            ActorHandle(self._actor_id,
+                        {self._method_name: dict(self._options)}),
+            self._method_name, args, kwargs)
 
 
 class ActorHandle:

@@ -93,11 +93,10 @@ class RemoteFunction:
         )
 
     def bind(self, *args, **kwargs):
-        """A lazy DAG node for this function (reference ``fn.bind``): not
-        ported yet."""
-        raise NotImplementedError(
-            "DAG nodes (dag/) are not ported yet (ROADMAP.md queue 1 "
-            "item 2)")
+        """Build a lazy DAG node for this function (reference ``fn.bind``)."""
+        from ray_tpu_torch.dag.dag_node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def options(self, **new_options):
         merged = {**self._options, **new_options}

@@ -1,7 +1,7 @@
 """Mutable shared-memory ring channels (twin of
-``ray_tpu/experimental/channel.py``): the data plane of disaggregated
-serving's KV shipping (``serve/kv_transfer.py``) and, once ``dag/`` is
-ported, of compiled DAGs.
+``ray_tpu/experimental/channel.py``): the data plane of compiled DAGs
+(``dag/compiled_dag.py``) and of disaggregated serving's KV shipping
+(``serve/kv_transfer.py``).
 
 Role analog: the reference's mutable plasma objects backing accelerated
 DAGs (``src/ray/core_worker/experimental_mutable_object_manager.h:37`` +

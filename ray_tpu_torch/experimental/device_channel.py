@@ -7,7 +7,12 @@ typed by ``TorchTensorType``. Here:
 - a value that is ONE torch tensor moves through the channel's ring slot
   RAW: its bytes land 64-byte aligned behind a small dtype / shape header,
   never pickled. A CUDA tensor is written with one device-to-host copy,
-  straight into the slot;
+  straight into the slot (pageable memory: ~the PCIe rate at best), after
+  a device-wide ``torch.cuda.synchronize``: the writer cannot know which
+  stream produced the tensor, and the slot is published only once the
+  copy is complete (``copy_`` into pageable host memory returns when its
+  bytes have landed). The synchronize also waits for unrelated work queued
+  on the card;
 - the reader gets a CPU tensor that ALIASES the slot (``torch.frombuffer``
   over the mapping): no copy at all. Where it must live on a card, the
   consumer moves it there (one host-to-device copy: cross-process device
@@ -123,7 +128,10 @@ class DeviceChannel(Channel):
                 mm[o:o + nbytes] = body
             elif nbytes:
                 # one copy into the slot, from the host or (a CUDA
-                # tensor) from the card, whatever the strides
+                # tensor) from the card, whatever the strides; the
+                # producer may have run on any stream
+                if body.is_cuda:
+                    torch.cuda.synchronize(body.device)
                 dst = _slot_view(mm, body.dtype, body.shape, o)
                 dst.copy_(body)
                 del dst

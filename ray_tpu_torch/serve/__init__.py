@@ -12,10 +12,10 @@ to another; ``SpeculativeLLMDeployment`` decodes speculatively over the
 same engine, and ``MultiplexedLLMDeployment`` serves many models (full
 weight sets and LoRA-style deltas) from one replica through a
 ``ModelRegistry``.
-
-Not ported yet (ROADMAP.md queue 1 item 2, the part still to come):
-compiled deployments (they need ``dag/``), the gRPC proxy
-(``grpc_proxy.py``) and ``config_api.py``.
+A deployment with ``compiled=True`` routes its steady-state requests
+through one compiled DAG per replica (``ray_tpu_torch.dag``); ``GrpcProxy``
+is the gRPC ingress beside ``HTTPProxy``, and ``config_api`` deploys a
+declarative config.
 """
 
 from ray_tpu_torch.serve.admission import (AdmissionController,
@@ -40,6 +40,7 @@ from ray_tpu_torch.serve.deployment import (
     deployment,
 )
 from ray_tpu_torch.serve.disagg import DisaggHandle, deploy_disagg
+from ray_tpu_torch.serve.grpc_proxy import GrpcProxy
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.kv_cache import BlockPool, KVCacheError, PrefixCache
 from ray_tpu_torch.serve.kv_transfer import KVTransferError
@@ -63,6 +64,7 @@ __all__ = [
     "Application",
     "DeploymentHandle",
     "DeploymentResponse",
+    "GrpcProxy",
     "HTTPProxy",
     "batch",
     "LLMDeployment",

@@ -54,6 +54,7 @@ def _spec_for(app: Application) -> Dict[str, Any]:
                                    if cfg.autoscaling_config else None),
             "ray_actor_options": cfg.ray_actor_options,
             "user_config": cfg.user_config,
+            "compiled": bool(getattr(cfg, "compiled", False)),
         },
     }
 
@@ -121,6 +122,19 @@ def model_report() -> Dict[str, Any]:
 
 def shutdown() -> None:
     _deployed_apps.clear()  # stale handles must not outlive the controller
+    # compiled execution plane: tear down every cached per-replica DAG
+    # while the replicas are still alive (graceful _Stop propagation) —
+    # their shm channels must not outlive serve
+    from ray_tpu_torch.serve import handle as _handle_mod
+
+    with _handle_mod._dag_lock():
+        dags = [ent[1] for ent in _handle_mod._dag_cache.values()]
+        _handle_mod._dag_cache.clear()
+    for dag in dags:
+        try:
+            dag.teardown(timeout=2.0)
+        except Exception:
+            pass
     try:
         controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
     except Exception:

@@ -96,6 +96,11 @@ class ServeController:
         init_args = tuple(resolve(a) for a in init_args)
         init_kwargs = {k: resolve(v) for k, v in init_kwargs.items()}
         opts = dict(spec["config"].get("ray_actor_options") or {})
+        if spec["config"].get("compiled"):
+            # compiled execution plane: the DAG exec loop occupies one
+            # concurrency slot for the deployment's lifetime — keep a
+            # second so health checks / reconfigure stay reachable
+            opts.setdefault("max_concurrency", 2)
         actor_cls = ray_tpu_torch.remote(ReplicaActor)
         return actor_cls.options(**opts).remote(
             cls_or_fn, init_args, init_kwargs,
@@ -169,6 +174,7 @@ class ServeController:
             "max_ongoing_requests":
                 entry["spec"]["config"].get("max_ongoing_requests", 8),
             "has_loads": bool(entry.get("loads")),
+            "compiled": bool(entry["spec"]["config"].get("compiled")),
         }
 
     def get_version(self) -> int:

@@ -33,8 +33,11 @@ class DeploymentConfig:
     ray_actor_options: Dict[str, Any] = field(default_factory=dict)
     user_config: Optional[Dict[str, Any]] = None
     health_check_period_s: float = 10.0
-    # compiled execution plane: requests routed through a compiled DAG
-    # per replica. Not ported yet: True raises (ROADMAP.md queue 1 item 2)
+    # compiled execution plane: steady-state requests route through a
+    # compiled DAG per replica (shm channels, no per-call task
+    # submission); replicas get a second concurrency slot so control
+    # calls (health checks, reconfigure) stay reachable while the DAG
+    # exec loop occupies the first
     compiled: bool = False
 
 
@@ -44,10 +47,6 @@ class Deployment:
         self.func_or_class = func_or_class
         self.name = name
         self.config = config or DeploymentConfig()
-        if self.config.compiled:
-            raise NotImplementedError(
-                "compiled deployments need dag/, which is not ported yet "
-                "(ROADMAP.md queue 1 item 2)")
 
     def options(self, *, name: Optional[str] = None,
                 num_replicas: Optional[int] = None,

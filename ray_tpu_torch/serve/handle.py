@@ -156,6 +156,69 @@ class DeploymentResponseGenerator:
                 self._on_done()
 
 
+class _BrokenFuture:
+    """Future for a request whose pipeline was already broken/torn at
+    admission: ``get()`` re-raises, so the response's broken-DAG fallback
+    runs lazily at ``result()`` time — ``remote()`` stays non-blocking."""
+
+    def __init__(self, dag, err):
+        self._dag = dag
+        self._err = err
+
+    def get(self, timeout: Optional[float] = None):
+        raise self._err
+
+
+class CompiledDeploymentResponse:
+    """``DeploymentResponse`` analog for the compiled execution plane:
+    wraps a :class:`CompiledDAGFuture` (no ``.ref`` — there is no object
+    store entry on this path). A BROKEN pipeline (the routed replica died
+    mid-DAG) falls back to one normally-routed actor call; a plain
+    timeout propagates — re-executing a possibly non-idempotent request
+    on timeout is the caller's decision, not the router's."""
+
+    def __init__(self, fut, on_done=None, fallback=None):
+        self._fut = fut
+        self._on_done = on_done
+        self._fallback = fallback
+        self._done = False
+        self._result = None
+
+    def result(self, timeout_s: Optional[float] = None):
+        if self._done:
+            return self._result
+        from ray_tpu_torch.dag import DAGExecutionError
+
+        try:
+            val = self._fut.get(timeout=timeout_s)
+        except DAGExecutionError:
+            broken = getattr(self._fut._dag, "_broken", None) or \
+                getattr(self._fut._dag, "_torn_down", False)
+            if self._fallback is None or not broken:
+                self._finish()
+                raise
+            try:
+                val = self._fallback()
+            except BaseException:
+                self._finish()
+                raise
+        self._result = val
+        self._done = True
+        self._finish()
+        return val
+
+    def _finish(self):
+        cb, self._on_done = self._on_done, None
+        if cb:
+            cb()
+
+    def __await__(self):
+        import asyncio
+
+        return asyncio.get_running_loop().run_in_executor(
+            None, self.result).__await__()
+
+
 _DEPTH_TTL_S = 0.05
 # replica-pushed KV/load reports (controller-mediated) are refreshed less
 # often than runtime queue depths: they ride a controller round trip, and
@@ -164,6 +227,33 @@ _KV_TTL_S = 0.25
 # a load report older than this is ignored (replica died or stopped
 # pushing; depth-only routing beats steering by a ghost)
 _KV_STALE_S = 5.0
+# compiled fast path: routing-table staleness bound. The per-request
+# controller round trip (get_version) is exactly the control-plane cost
+# the compiled plane exists to remove; a stale table self-heals anyway
+# (a dead replica's broken DAG triggers the fallback + forced refresh).
+_COMPILED_REFRESH_TTL_S = 1.0
+
+# Process-global compiled-pipeline cache, keyed by replica actor id: the
+# method name rides the request payload, so ONE DAG per replica serves
+# every method and every handle clone in this process — a second exec
+# loop would burn the replica's spare concurrency slot (held for health
+# checks). Compiled deployments are designed to be driven from one
+# process (the steady-state server loop); handles pickled into OTHER
+# processes start their own loop there and need the replica to have a
+# free slot.
+_dag_cache: Dict[bytes, Any] = {}
+_dag_cache_lock = None  # created lazily (threading import stays local)
+
+
+def _dag_lock():
+    global _dag_cache_lock
+    if _dag_cache_lock is None:
+        import threading
+
+        _dag_cache_lock = threading.Lock()
+    return _dag_cache_lock
+
+
 class DeploymentHandle:
     def __init__(self, deployment_name: str, controller=None,
                  method_name: str = "__call__", stream: bool = False):
@@ -195,6 +285,15 @@ class DeploymentHandle:
         # their request path); the controller bumps the version on the
         # FIRST report, so handles refetch and flip this
         self._has_loads = False
+        # compiled execution plane: when the deployment opted in
+        # (``compiled=True``), steady-state requests route through one
+        # compiled DAG per replica (shm channels, zero per-call task
+        # submission); pipelines live in the process-global _dag_cache
+        # (one per replica, shared by every handle in this process),
+        # lazily built, torn down when their replica leaves the table
+        self._compiled = False
+        self._refresh_ts = 0.0  # last successful _refresh (monotonic)
+        self._dags = _dag_cache
         # multi-model routing (ISSUE 16): model_id steers toward replicas
         # advertising the model RESIDENT (a swap-in costs a weight
         # page-in) and rides the request as a kwarg; prefix_hint (the
@@ -229,10 +328,52 @@ class DeploymentHandle:
             self._replicas = info["replicas"]
             self._max_ongoing = info["max_ongoing_requests"]
             self._version = info["version"]
+            self._compiled = bool(info.get("compiled"))
             self._has_loads = bool(info.get("has_loads"))
             self._depths = [0] * len(self._replicas)
             self._depth_ts = 0.0
             self._delta = {i: 0 for i in range(len(self._replicas))}
+            self._teardown_stale_dags()
+        self._refresh_ts = time.monotonic()
+
+    def _teardown_stale_dags(self) -> None:
+        """Routing table changed: drop THIS deployment's compiled DAGs
+        whose replica left the table (scaled down, replaced, or dead —
+        keeping the DAG would pin the departed replica's exec loop and
+        shm rings). Cache entries are tagged with their deployment name,
+        so other deployments' pipelines are never touched."""
+        if not self._compiled or not self._dags:
+            return
+        live = {r._actor_id.binary() for r in self._replicas}
+        with _dag_lock():
+            stale = [k for k, (dep, _d) in self._dags.items()
+                     if dep == self.deployment_name and k not in live]
+            dags = [self._dags.pop(k)[1] for k in stale]
+        for dag in dags:
+            try:
+                dag.teardown(timeout=2.0)
+            except Exception:
+                pass
+
+    def _dag_for(self, idx: int):
+        """The replica's compiled request pipeline, built on first use:
+        ``InputNode -> replica.handle_request_packed``, admitting up to
+        ``max_ongoing_requests`` overlapping requests. Cached process-
+        globally: one pipeline per replica, shared by every handle."""
+        replica = self._replicas[idx]
+        key = replica._actor_id.binary()
+        with _dag_lock():
+            ent = self._dags.get(key)
+            if ent is None:
+                from ray_tpu_torch.dag import InputNode
+
+                with InputNode() as inp:
+                    node = replica.handle_request_packed.bind(inp)
+                dag = node.experimental_compile(
+                    max_in_flight=max(1, min(self._max_ongoing, 32)))
+                ent = (self.deployment_name, dag)
+                self._dags[key] = ent
+        return ent[1]
 
     # -- routing ----------------------------------------------------------
 
@@ -433,8 +574,11 @@ class DeploymentHandle:
         h._version = self._version
         h._max_ongoing = self._max_ongoing
         # the clone inherits a matching _version, so its _refresh() will
-        # skip the info fetch: what that fetch sets must travel with it
+        # skip the info fetch — _compiled must travel with it or method
+        # clones (handle.my_method) silently leave the compiled plane
+        h._compiled = self._compiled
         h._has_loads = self._has_loads
+        h._refresh_ts = self._refresh_ts
         # the SHARED routing-state object travels by reference:
         # __getattr__ makes a FRESH clone per method-style call, and a
         # clone-private copy would reset the KV-view TTL (one blocking
@@ -481,6 +625,17 @@ class DeploymentHandle:
             pass
 
     def remote(self, *args, **kwargs):
+        if not self._stream:
+            if self._version == -1:
+                self._refresh()
+            if self._compiled:
+                # compiled execution plane: no task submission, no
+                # scheduler — the request rides the replica's shm DAG
+                # (None = payload can't ride the ring; fall through to
+                # the ordinary actor-call path below)
+                resp = self._remote_compiled(args, kwargs)
+                if resp is not None:
+                    return resp
         from ray_tpu_torch import config as _cfg
         from ray_tpu_torch.util import tracing
 
@@ -545,6 +700,75 @@ class DeploymentHandle:
             return DeploymentResponseGenerator(ref, on_done=_done,
                                                retry=_retry)
         return DeploymentResponse(ref, on_done=_done, retry=_retry)
+
+    def _remote_compiled(self, args, kwargs):
+        """Route one request through the picked replica's compiled DAG.
+        ``max_in_flight`` admission doubles as the per-replica ongoing-
+        request bound; a broken pipeline falls back to a normal routed
+        call (and reports the death so the controller reconciles).
+        Returns None when this request cannot ride the compiled plane
+        (payload exceeds the ring slot) — the caller then takes the
+        ordinary actor-call path."""
+        from ray_tpu_torch.dag import DAGBackpressureError, DAGExecutionError
+        from ray_tpu_torch.experimental.channel import ChannelFullError
+
+        # TTL'd refresh: steady state pays ZERO controller round trips
+        # per request (the whole point of the compiled plane)
+        if (self._version == -1 or not self._replicas
+                or time.monotonic() - self._refresh_ts
+                > _COMPILED_REFRESH_TTL_S):
+            self._refresh()
+        idx = self._pick_replica()
+        replica = self._replicas[idx]
+        key = replica._actor_id.binary()
+        dag = self._dag_for(idx)
+        try:
+            fut = dag.execute((self._method, args, kwargs), timeout=60.0)
+        except DAGBackpressureError:
+            # saturated-but-HEALTHY pipeline: overload must surface to
+            # the caller, never read as a replica death (tearing down a
+            # live pipeline would error every in-flight request)
+            raise
+        except ChannelFullError:
+            # payload larger than the ring slot: this request rides the
+            # ordinary path (object store has no such bound)
+            return None
+        except DAGExecutionError as e:
+            # pipeline already broken/torn down at admission: hand back a
+            # response whose result() runs the re-route lazily —
+            # remote() itself stays non-blocking
+            fut = _BrokenFuture(dag, e)
+        self._delta[idx] = self._delta.get(idx, 0) + 1
+
+        def _done():
+            self._delta[idx] = self._delta.get(idx, 0) - 1
+            self._report_metrics()
+
+        def _fallback():
+            return self._compiled_fallback(key, replica, args, kwargs)
+
+        return CompiledDeploymentResponse(fut, on_done=_done,
+                                          fallback=_fallback)
+
+    def _compiled_fallback(self, key: bytes, replica, args, kwargs):
+        """The routed replica's pipeline broke (replica death): drop its
+        DAG, report the death, and run this request once through the
+        ordinary actor-call path on a live replica."""
+        import ray_tpu_torch
+
+        with _dag_lock():
+            ent = self._dags.pop(key, None)
+        if ent is not None:
+            try:
+                ent[1].teardown(timeout=2.0)
+            except Exception:
+                pass
+        self._replica_died(replica)
+        idx, _rep, ref = self._issue(args, kwargs, exclude=key)
+        try:
+            return ray_tpu_torch.get(ref, timeout=60)
+        finally:
+            self._delta[idx] = self._delta.get(idx, 0) - 1
 
     def _report_metrics(self):
         try:

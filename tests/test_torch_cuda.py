@@ -962,3 +962,66 @@ def test_trainer_on_the_card_launches_the_kernels_in_its_worker(runtime,
         assert r["pid"] != os.getpid() and r["device"] == "cuda"
         assert r["launches"] == [2, 2, 2]
         assert np.isfinite(r["loss"])
+
+
+def test_tensor_edge_carries_a_card_bf16_tensor_between_card_stages(runtime):
+    """A compiled DAG whose two stages are actors on the card (half a GPU
+    each): stage A makes a bf16 tensor on a side stream and returns it
+    unsynchronised on a tensor edge (the channel's write must wait for
+    it); stage B gets it on the card and returns it with its argmax on a
+    tensor edge to this process, which reads it on the CPU. Bitwise the
+    tensor this process draws from the same seed."""
+    import glob
+
+    rt = runtime
+    from ray_tpu_torch.dag import InputNode
+
+    on_card = dict(num_gpus=0.5, max_concurrency=2, runtime_env={
+        "env_vars": {"CUDA_VISIBLE_DEVICES": "0"}})
+
+    class Make:
+        def make(self, seed):
+            import torch
+
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            x = torch.randn(64, 4096, generator=gen, device="cuda")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                y = (x * 3.0).to(torch.bfloat16)
+            return y
+
+    class Relay:
+        def relay(self, y):
+            from ray_tpu_torch.experimental.device_channel import \
+                TensorWithMeta
+
+            return TensorWithMeta({"device": y.device.type,
+                                   "argmax": y.argmax(-1).tolist()}, y)
+
+    a = rt.remote(Make).options(**on_card).remote()
+    b = rt.remote(Relay).options(**on_card).remote()
+    with InputNode() as inp:
+        mid = a.make.bind(inp).with_tensor_transport()
+        out = b.relay.bind(mid).with_tensor_transport()
+    compiled = out.experimental_compile(max_in_flight=2,
+                                        buffer_size_bytes=1 << 20)
+    paths = [ch.path for ch in compiled._channels]
+    try:
+        futs = [compiled.execute(seed, timeout=60) for seed in range(4)]
+        got = [futs[i].get(timeout=120) for i in (3, 1, 0, 2)]
+        got = dict(zip((3, 1, 0, 2), got))
+    finally:
+        compiled.teardown()
+        rt.kill(a)
+        rt.kill(b)
+    assert not any(glob.glob(p) for p in paths)
+    for seed, res in got.items():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        want = (torch.randn(64, 4096, generator=gen, device="cuda")
+                * 3.0).to(torch.bfloat16).cpu()
+        assert res.meta["device"] == "cuda"
+        assert res.tensor.device.type == "cpu"
+        assert torch.equal(res.tensor.view(torch.int16),
+                           want.view(torch.int16)), seed
+        assert res.meta["argmax"] == want.argmax(-1).tolist()

@@ -219,15 +219,6 @@ def test_in_process_deployments_ship_over_a_ring(reference):
     assert not os.path.exists(ring)
 
 
-def test_compiled_deployments_and_dag_nodes_still_raise():
-    """The rest of ROADMAP queue 1 item 2 is not ported: compiled
-    deployments and ``.bind`` raise, naming it."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        serve.deployment(compiled=True)(lambda x: x)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        rt.remote(lambda x: x).bind(1)
-
-
 # -- the router ---------------------------------------------------------------
 
 class _Id:

@@ -167,7 +167,7 @@ def test_string_and_resolution_checkers_catch_faults(tmp_path):
     bad.write_text(
         "BOOT = \"runpy.run_module('ray_tpu.core.worker')\"\n"
         "ARGV = ['ray_tpu.core.worker', '--addr']\n"
-        "def f():\n    from ray_tpu_torch.dag import InputNode\n"
+        "def f():\n    from ray_tpu_torch.data import Dataset\n"
         "    from ray_tpu_torch.core.runtime import no_such_name\n"
         "    import ray_tpu_torch.cluster.adapter\n"
         "BOOT2 = \"runpy.run_module('ray_tpu_torch.core.nothing')\"\n")
@@ -176,7 +176,7 @@ def test_string_and_resolution_checkers_catch_faults(tmp_path):
         "ray_tpu_torch.cluster.adapter",
         "ray_tpu_torch.core.nothing",
         "ray_tpu_torch.core.runtime.no_such_name",
-        "ray_tpu_torch.dag"]
+        "ray_tpu_torch.data"]
     ok = tmp_path / "ok.py"
     ok.write_text("P = 'ray_tpu/ops/flash_pallas.py:63'\n"
                   "B = \"runpy.run_module('ray_tpu_torch.core.worker')\"\n"
@@ -246,3 +246,58 @@ def test_walk_covers_the_disaggregated_slice(rel, expected):
     assert _forbidden_imports(path) == []
     assert _unresolved_port_imports(path) == []
     assert _reference_module_strings(path) == []
+
+
+@pytest.mark.parametrize("rel,expected", [
+    ("ray_tpu_torch/dag/dag_node.py",
+     {"ray_tpu_torch.experimental.device_channel",
+      "ray_tpu_torch.dag.compiled_dag"}),
+    # the exec loop's runtime, tracing and metric uses sit in function
+    # bodies: the walk must see them
+    ("ray_tpu_torch/dag/compiled_dag.py",
+     {"torch", "ray_tpu_torch", "ray_tpu_torch.dag.dag_node",
+      "ray_tpu_torch.experimental.channel",
+      "ray_tpu_torch.experimental.device_channel",
+      "ray_tpu_torch.core.runtime", "ray_tpu_torch.util.tracing",
+      "ray_tpu_torch.util.metric_defs", "ray_tpu_torch.config"}),
+    ("ray_tpu_torch/dag/__init__.py",
+     {"ray_tpu_torch.dag.dag_node", "ray_tpu_torch.dag.compiled_dag"}),
+    ("ray_tpu_torch/serve/handle.py",
+     {"ray_tpu_torch", "ray_tpu_torch.dag",
+      "ray_tpu_torch.experimental.channel"}),
+    # grpc and yaml are imported inside functions: the package imports
+    # without them
+    ("ray_tpu_torch/serve/grpc_proxy.py",
+     {"grpc", "ray_tpu_torch.serve.handle"}),
+    ("ray_tpu_torch/serve/config_api.py",
+     {"yaml", "ray_tpu_torch.serve", "ray_tpu_torch.serve.deployment",
+      "ray_tpu_torch.serve.api"}),
+    ("ray_tpu_torch/core/actor.py", {"ray_tpu_torch.dag.dag_node"}),
+    ("ray_tpu_torch/core/remote_function.py", {"ray_tpu_torch.dag.dag_node"}),
+])
+def test_walk_covers_the_compiled_slice(rel, expected):
+    path = os.path.join(ROOT, rel)
+    assert expected <= _imported_modules(path)
+    assert _forbidden_imports(path) == []
+    assert _unresolved_port_imports(path) == []
+    assert _reference_module_strings(path) == []
+
+
+def test_serve_imports_without_grpc_or_yaml():
+    """``import ray_tpu_torch.serve`` (and the DAG package) must work on a
+    machine without ``grpcio`` or ``yaml``: the card's has neither."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "class _Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('grpc', 'yaml'):\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, _Block())\n"
+            "import ray_tpu_torch.serve, ray_tpu_torch.dag\n"
+            "from ray_tpu_torch.serve import GrpcProxy, config_api\n"
+            "assert 'grpc' not in sys.modules and 'yaml' not in sys.modules\n"
+            "assert 'jax' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)

@@ -262,13 +262,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         rt.init(address="10.0.0.1:6379")
 
-    @rt.remote
-    def f(x):
-        return x
-
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        f.bind(1)
-
 
 def test_task_error_carries_the_remote_exception(runtime):
     @rt.remote

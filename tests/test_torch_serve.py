@@ -147,14 +147,18 @@ def _metric_values(md):
 
 
 def _moved(before, after):
-    """Counters and histograms: what moved; gauges: where they stand."""
+    """Counters and histograms: what moved; gauges: where they stand, for
+    the colocated engines these tests run (a prefill or decode engine that
+    another test ran in this process keeps its own gauges in the same
+    registry)."""
     out = {}
     for name, now in after.items():
         if "_total" in name or name.endswith("_seconds"):
             out[name] = {k: v - before[name].get(k, 0) for k, v in now.items()
                          if v - before[name].get(k, 0)}
         else:
-            out[name] = now
+            out[name] = {k: v for k, v in now.items()
+                         if dict(k).get("role", "colocated") == "colocated"}
     return out
 
 
