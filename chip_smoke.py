@@ -3226,31 +3226,63 @@ def phase_train_save_attn(card, full_row, seed=0, device="cuda"):
 
 
 # The trainer phase: llama_1b at full width and depth, B=4, L=4096, as
-# phase_train; each step's batch drawn from seed + step.
+# phase_train; its batches come from a dataset (the token corpus below).
 TRAINER_STEPS, TRAINER_CKPT_STEP, TRAINER_DIE_AFTER = 8, 4, 6
 # The resumed steps' losses against the in-process run's: the same weights
 # and batches on the same card through the same kernels, all three
 # deterministic, and the checkpoint restores parameters, AdamW moments and
 # steps bit for bit, so the losses must be equal (a gap of 0).
 TRAINER_LOSS_TOL = 0.0
+# The token corpus: CORPUS_SHARDS .npy files of CORPUS_ROWS sequences of
+# 4,097 uint16 tokens (L = 4096 plus the shifted target), drawn from the
+# seed with numpy below llama_1b's vocabulary: 8,192 sequences, 33.6 M
+# tokens, 67 MB.
+CORPUS_SHARDS, CORPUS_ROWS, CORPUS_SEQ = 32, 256, 4097
+INGEST_BATCHES = (4, 64)
 
 
-def _trainer_batch(cfg, b, l, seed, step, device):
-    gen = torch.Generator(device=device).manual_seed(seed + step)
-    return {"tokens": torch.randint(0, cfg.vocab_size, (b, l + 1),
-                                    generator=gen, device=device)}
+def write_corpus(path, vocab, seed=0):
+    """Write the token corpus under ``path``; returns the sum of its
+    tokens."""
+    rng = np.random.default_rng(seed)
+    total = 0
+    for i in range(CORPUS_SHARDS):
+        shard = rng.integers(0, vocab, (CORPUS_ROWS, CORPUS_SEQ),
+                             dtype=np.uint16)
+        total += int(shard.sum(dtype=np.int64))
+        np.save(os.path.join(path, f"shard_{i:03d}.npy"), shard)
+    return total
+
+
+def corpus_dataset(path, seed=0):
+    """The plan a user writes: read the shards, shuffle the sequences with
+    a seed, keep the ``tokens`` column."""
+    from ray_tpu_torch import data
+
+    return (data.read_numpy(path).random_shuffle(seed=seed)
+            .map_batches(lambda b: {"tokens": b["data"]}))
+
+
+def _token_batches(it, b, device):
+    """``iter_torch_batches`` as the trainer takes it: int64 tokens on
+    ``device``."""
+    return it.iter_torch_batches(batch_size=b, device=device,
+                                 dtypes={"tokens": torch.int64},
+                                 drop_last=True)
 
 
 def _trainer_loop(config):
     """The train loop of the trainer phase, run in the worker: the helper
     from ``seed`` (or the checkpoint it is handed), one ``run_step`` a step
-    on the batch of ``seed + step``, each step reported with its loss, its
-    kernel launches in this process and ``StepTelemetry``'s tokens/s and
-    MFU; after step ``ckpt_step`` ``save_checkpoint_async`` (waited on) and
-    the checkpoint reported; on the first attempt the process exits after
-    reporting ``die_after``. It travels to the worker by value (this
-    script runs as ``__main__``), with :func:`_trainer_batch`; what else it
-    uses it imports itself."""
+    on the next batch of ``get_dataset_shard("train")`` (a resumed attempt
+    first skips the batches its checkpoint's steps took), each step
+    reported with its loss, its wait for the batch, its kernel launches in
+    this process and ``StepTelemetry``'s tokens/s and MFU; after step
+    ``ckpt_step`` ``save_checkpoint_async`` (waited on) and the checkpoint
+    reported; on the first attempt the process exits after reporting
+    ``die_after``. It travels to the worker by value (this script runs as
+    ``__main__``), with :func:`_token_batches`; what else it uses it
+    imports itself."""
     import os
     import shutil
     import tempfile
@@ -3286,8 +3318,15 @@ def _trainer_loop(config):
     marker = os.path.join(train.get_context().get_trial_dir(), "died")
     telemetry = train.get_step_telemetry()
     prev_report_s = None
+    t0 = time.perf_counter()
+    batches = _token_batches(train.get_dataset_shard("train"), b, dev)
+    for _ in range(start):
+        next(batches)
+    skip_s = time.perf_counter() - t0
     for step in range(start, config["steps"]):
-        batch = _trainer_batch(cfg, b, l, seed, step, dev)
+        t0 = time.perf_counter()
+        batch = next(batches)
+        wait_s = time.perf_counter() - t0
         sync()
         flash_cuda.launches = flash_cuda.launches_dkv = 0
         flash_cuda.launches_dq = 0
@@ -3298,6 +3337,7 @@ def _trainer_loop(config):
                               flops=config["flops_per_step"], loss=loss)
         snap = telemetry.snapshot()
         metrics = {"step": step + 1, "loss": loss, "step_s": step_s,
+                   "batch_wait_s": wait_s, "skip_s": skip_s,
                    "launches": [flash_cuda.launches, flash_cuda.launches_dkv,
                                 flash_cuda.launches_dq],
                    "telemetry_tokens_per_s": snap.get("tokens_per_s"),
@@ -3332,17 +3372,20 @@ def _trainer_loop(config):
             os._exit(1)
 
 
-def phase_trainer(card, seed=0, b=4, l=4096, device="cuda",
+def phase_trainer(card, corpus, seed=0, b=4, l=4096, device="cuda",
                   model="llama-1b"):
-    """llama_1b through the framework: ``TorchTrainer`` with one
-    ``use_gpu`` worker and ``FailureConfig(max_failures=1)``, its loop
-    (:func:`_trainer_loop`) checkpointing after step 4 and killing its
-    process after step 6 on the first attempt; the executor restarts the
-    gang, which resumes from step 4's checkpoint and runs steps 5-8. Held
-    against the same 8 steps run in this process first. Storage in a
-    ``tempfile.mkdtemp()``, removed at the end. ``device="cpu"`` and a
-    small ``model`` rehearse it on the CPU (its launch check fails
-    there)."""
+    """llama_1b through the framework, fed from a dataset: ``TorchTrainer``
+    with one ``use_gpu`` worker, ``FailureConfig(max_failures=1)`` and
+    ``datasets={"train": corpus_dataset(corpus)}``; its loop
+    (:func:`_trainer_loop`) takes its batches from
+    ``get_dataset_shard("train").iter_torch_batches(device="cuda")``,
+    checkpoints after step 4 and kills its process after step 6 on the
+    first attempt; the executor restarts the gang, which resumes from step
+    4's checkpoint, skips the 4 batches it took and runs steps 5-8. Held
+    against the same 8 steps run in this process first on the batches of
+    ``ds.iterator()``. Storage in a ``tempfile.mkdtemp()``, removed at the
+    end. ``device="cpu"`` and a small ``model`` (and corpus) rehearse it
+    on the CPU (its launch check fails there)."""
     import ray_tpu_torch
     from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
                                      TorchTrainer)
@@ -3350,23 +3393,6 @@ def phase_trainer(card, seed=0, b=4, l=4096, device="cuda",
 
     cfg = models.get_config(model)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    # the reference: the same steps in this process
-    gen = torch.Generator(device=device).manual_seed(seed)
-    helper = TrainLoopHelper.create(
-        lambda: models.init_params(gen, cfg, device=device),
-        lambda p, bt: models.loss_and_metrics(p, bt, cfg), adamw(1e-4),
-        device=device)
-    ref_losses, ref_s = [], []
-    for step in range(TRAINER_STEPS):
-        batch = _trainer_batch(cfg, b, l, seed, step, device)
-        sync()
-        t0 = time.perf_counter()
-        ref_losses.append(helper.run_step(batch)["loss"].item())
-        ref_s.append(time.perf_counter() - t0)
-    del helper, batch
-    if device == "cuda":
-        torch.cuda.empty_cache()
-
     storage = tempfile.mkdtemp(prefix="chip-smoke-trainer-")
     try:
         # f32 parameters and two AdamW moments, written once by the loop and
@@ -3382,6 +3408,31 @@ def phase_trainer(card, seed=0, b=4, l=4096, device="cuda",
         os.makedirs(scratch)
         ray_tpu_torch.init()
         try:
+            ds = corpus_dataset(corpus, seed)
+            # the reference: the same steps in this process, on the batches
+            # of the same plan
+            gen = torch.Generator(device=device).manual_seed(seed)
+            helper = TrainLoopHelper.create(
+                lambda: models.init_params(gen, cfg, device=device),
+                lambda p, bt: models.loss_and_metrics(p, bt, cfg),
+                adamw(1e-4), device=device)
+            ref_losses, ref_s, ref_wait = [], [], []
+            batches = _token_batches(ds.iterator(), b, device)
+            for step in range(TRAINER_STEPS):
+                t0 = time.perf_counter()
+                batch = next(batches)
+                ref_wait.append(time.perf_counter() - t0)
+                if tuple(batch["tokens"].shape) != (b, l + 1):
+                    raise AssertionError(f"batch {tuple(batch['tokens'].shape)}"
+                                         f", expected {(b, l + 1)}")
+                sync()
+                t0 = time.perf_counter()
+                ref_losses.append(helper.run_step(batch)["loss"].item())
+                ref_s.append(time.perf_counter() - t0)
+            batches.close()
+            del helper, batch, batches
+            if device == "cuda":
+                torch.cuda.empty_cache()
             t_fit = time.time()
             result = TorchTrainer(
                 _trainer_loop,
@@ -3394,7 +3445,8 @@ def phase_trainer(card, seed=0, b=4, l=4096, device="cuda",
                                              use_gpu=device == "cuda"),
                 run_config=RunConfig(
                     storage_path=storage,
-                    failure_config=FailureConfig(max_failures=1))).fit()
+                    failure_config=FailureConfig(max_failures=1)),
+                datasets={"train": ds}).fit()
             fit_s = time.time() - t_fit
         finally:
             ray_tpu_torch.shutdown()
@@ -3445,6 +3497,20 @@ def phase_trainer(card, seed=0, b=4, l=4096, device="cuda",
         losses_reference=ref_losses,
         losses_trainer=[r["loss"] for r in reports],
         worker_pids=sorted({r["pid"] for r in reports}))
+    # the wait for the next batch, a step: in the worker (step 1 of each
+    # attempt includes the plan's first output: the shuffle) and in process
+    waits = [r["batch_wait_s"] for r in reports]
+    row.update(
+        worker_batch_wait_ms_median=float(np.median(waits)) * 1e3,
+        worker_batch_wait_ms_max=float(max(waits)) * 1e3,
+        worker_batch_wait_ms_median_after_first=float(np.median(
+            [r["batch_wait_s"] for r in reports
+             if r["step"] not in (1, TRAINER_CKPT_STEP + 1)])) * 1e3,
+        resumed_skip_s=second[0]["skip_s"],
+        ref_batch_wait_ms_median=float(np.median(ref_wait)) * 1e3,
+        ref_batch_wait_ms_max=float(max(ref_wait)) * 1e3,
+        step_ms_over_in_process=(row["trainer_step_ms_median"]
+                                 / row["ref_step_ms_median"]))
     print(f"[trainer] {json.dumps(row)} on {card}", flush=True)
     want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
     bad = [(r["step"], r["launches"]) for r in reports
@@ -3475,6 +3541,223 @@ def phase_trainer(card, seed=0, b=4, l=4096, device="cuda",
                              f"the complete {want_ckpt}")
     if not all(np.isfinite(r["loss"]) for r in reports):
         raise AssertionError("a trainer loss is not finite")
+    return row
+
+
+def _ingest_pass(ds, b, device):
+    """One pass over the plan's batches into ``device`` at batch ``b``,
+    keeping every batch (no sync until the end); returns the batches and
+    the seconds to the first batch and to the last (synchronised)."""
+    it = ds.iterator()
+    t0 = time.perf_counter()
+    out, first_s = [], None
+    for batch in _token_batches(it, b, device):
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        out.append(batch["tokens"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    return out, first_s, total_s
+
+
+def _h2d_profile(ds, b):
+    """One more pass into the card at batch ``b``, under ``torch.profiler``:
+    the host-to-device copies from the trace's HtoD memcpy records (their
+    count and device ms), and the bytes they moved (the batches' tokens,
+    uploaded as the corpus's uint16)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got, _, _ = _ingest_pass(ds, b, "cuda")
+    copies, copy_ms = 0, 0.0
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy HtoD" in evt.key):
+            copies += evt.count
+            copy_ms += evt.self_device_time_total / 1e3
+    if copies < len(got) or copy_ms <= 0:
+        raise AssertionError(f"batch {b}: the trace holds {copies} HtoD "
+                             f"copies ({copy_ms} ms) for {len(got)} batches")
+    nbytes = sum(g.numel() for g in got) * np.dtype(np.uint16).itemsize
+    return dict(h2d_copies=copies, h2d_bytes=nbytes, h2d_copy_ms=copy_ms,
+                h2d_gb_per_s=nbytes / copy_ms / 1e6)
+
+
+def phase_data_ingest(card, corpus, corpus_sum, seed=0, device="cuda",
+                      batches=INGEST_BATCHES):
+    """The trainer's plan (read the shards, seeded shuffle, ``tokens``)
+    over the whole corpus into the card, once at each batch size: rows/s,
+    MB/s of the corpus and the time to the first batch; then a pass under
+    ``torch.profiler`` for the host-to-device copies' device time and GB/s.
+    Every batch on the card must equal the same batch of a pass with
+    ``device="cpu"``, and the sum of all tokens the corpus's (numpy)."""
+    import ray_tpu_torch
+
+    corpus_bytes = sum(os.path.getsize(f) for f in glob.glob(
+        os.path.join(corpus, "*.npy")))
+    rows_total = CORPUS_SHARDS * CORPUS_ROWS
+    ray_tpu_torch.init()
+    try:
+        ds = corpus_dataset(corpus, seed)
+        rows = []
+        for b in batches:
+            got, first_s, total_s = _ingest_pass(ds, b, device)
+            want, cpu_first_s, cpu_s = _ingest_pass(ds, b, "cpu")
+            if len(got) != len(want) or len(got) != rows_total // b:
+                raise AssertionError(f"batch {b}: {len(got)} batches on "
+                                     f"{device}, {len(want)} on the CPU, "
+                                     f"expected {rows_total // b}")
+            bad = [i for i, (g, w) in enumerate(zip(got, want))
+                   if g.device.type != device or g.dtype != torch.int64
+                   or not torch.equal(g.cpu(), w)]
+            if bad:
+                raise AssertionError(f"batch {b}: batches {bad[:8]} on "
+                                     f"{device} differ from the CPU pass")
+            tok_sum = int(sum(int(g.sum()) for g in got))
+            if tok_sum != corpus_sum:
+                raise AssertionError(f"batch {b}: token sum {tok_sum}, the "
+                                     f"corpus's {corpus_sum}")
+            del got, want
+            row = dict(batch=b, batches=rows_total // b, rows=rows_total,
+                       first_batch_s=first_s, pass_s=total_s,
+                       rows_per_s=rows_total / total_s,
+                       corpus_mb_per_s=corpus_bytes / total_s / 1e6,
+                       cpu_pass_s=cpu_s, cpu_first_batch_s=cpu_first_s)
+            if device == "cuda":
+                row.update(_h2d_profile(ds, b))
+            rows.append(row)
+        print(f"[data ingest] {json.dumps(rows)} on {card}", flush=True)
+        return rows
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def _verb_matrix(n):
+    """The verb matrix of ``tests/test_collective.py:75-125`` for ``n``
+    entries: (name, call on a group, inputs as a list of lists of CPU
+    tensors); roots and pairs fold into ``range(n)``."""
+    from ray_tpu_torch.collective.types import ReduceOp
+
+    gen = torch.Generator().manual_seed(0)
+    x = [torch.randint(-8, 9, (1 << 20,), generator=gen).float()
+         for _ in range(n)]
+    rs = [torch.arange(2 * n * 1024, dtype=torch.float32) + i
+          for i in range(n)]
+    chunks = [[torch.full((1024,), float(10 * i + j)) for j in range(n)]
+              for i in range(n)]
+    pairs = ([(1, 6), (0, 7)] if n >= 8
+             else [(i, (i + 1) % n) for i in range(n)])
+    root2, root3 = min(2, n - 1), min(3, n - 1)
+    m = []
+    for op in ("sum", "mean", "max", "min", "product"):
+        m.append((f"allreduce_{op}",
+                  lambda g, t, op=op: g.allreduce(t, op=ReduceOp(op)), x))
+    m += [("allgather", lambda g, t: g.allgather(t), x),
+          ("reducescatter", lambda g, t: g.reducescatter(t), rs),
+          (f"reduce_sum_root{root2}",
+           lambda g, t: g.reduce(t, root_rank=root2), x),
+          ("reduce_max_root0",
+           lambda g, t: g.reduce(t, root_rank=0, op=ReduceOp.MAX), x),
+          (f"broadcast_root{root3}",
+           lambda g, t: g.broadcast(t, root_rank=root3), x),
+          ("permute", lambda g, t: g.permute(t, pairs), x),
+          ("send", lambda g, t: g.send(t, dst_rank=n - 1, src_rank=0), x),
+          ("alltoall", lambda g, t: g.alltoall(t), chunks)]
+    return m
+
+
+def _run_verbs(group, plain, devices, reps=5):
+    """Each verb of the matrix on ``group`` with its inputs on ``devices``
+    (entry i on ``devices[i]``), held against ``plain`` (the same group's
+    plain path on the CPU inputs); the median ms of ``reps`` timed calls.
+    Returns {verb: {"max_abs_err", "ms"}}."""
+    out = {}
+    for name, call, xs in _verb_matrix(len(devices)):
+        def place(v, d):
+            return ([t.to(d) for t in v] if isinstance(v, list)
+                    else v.to(d))
+        dev_in = [place(v, d) for v, d in zip(xs, devices)]
+        want = call(plain, xs)
+        got = call(group, dev_in)
+        flat_w = [t for v in want for t in (v if isinstance(v, list)
+                                            else [v])]
+        flat_g = [t for v in got for t in (v if isinstance(v, list)
+                                           else [v])]
+        err = max(float((g.cpu() - w).abs().max()) for g, w in
+                  zip(flat_g, flat_w))
+        tol = 1e-6 if "mean" in name else 0.0
+        if len(flat_g) != len(flat_w) or err > tol:
+            raise AssertionError(f"collective {name}: max |err| {err} "
+                                 f"against the plain version (limit {tol})")
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(group, dev_in)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"max_abs_err": err, "ms": float(np.median(times))}
+    return out
+
+
+class CollectiveOnCard:
+    """An actor on the card: a one-process ``XlaDistributedGroup`` (NCCL,
+    world size 1) running the verb matrix, held against the plain path."""
+
+    def run(self, group_name):
+        import torch
+
+        from ray_tpu_torch.collective import collective as col
+
+        g = col.init_collective_group(1, 0, "xla_distributed", group_name,
+                                      device="cuda")
+        try:
+            import torch.distributed as dist
+
+            backend = dist.get_backend()
+            plain = col.XlaGroup(1, 0, group_name + "_plain", device="cpu")
+            verbs = _run_verbs(g, plain, [torch.device("cuda", 0)])
+            g.barrier()
+            return {"backend": backend, "verbs": verbs}
+        finally:
+            col.destroy_collective_group(group_name)
+
+
+def phase_collective(card):
+    """``XlaGroup`` over the cards this process sees (``torch.cuda.nccl``,
+    copies between cards) and a one-actor ``XlaDistributedGroup`` over NCCL
+    run the verb matrix, each held against the plain version on the same
+    inputs (tolerance 0; 1e-6 for the mean). NCCL refuses two ranks on one
+    card, so a group across cards waits for several cards (ROADMAP.md queue
+    1 item 5)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.collective import collective as col
+
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(n)]
+    local = _run_verbs(col.XlaGroup(n, 0, "smoke_local"),
+                       col.XlaGroup(n, 0, "smoke_plain", device="cpu"),
+                       devices)
+    ray_tpu_torch.init()
+    try:
+        col.create_collective_group([], 1, [0], "xla_distributed",
+                                    "smoke_dist")
+        actor = ray_tpu_torch.remote(CollectiveOnCard).options(
+            **ON_CARD).remote()
+        try:
+            dist_out = ray_tpu_torch.get(actor.run.remote("smoke_dist"),
+                                         timeout=600)
+        finally:
+            ray_tpu_torch.kill(actor)
+    finally:
+        ray_tpu_torch.shutdown()
+    if dist_out["backend"] != "nccl":
+        raise AssertionError(f"distributed group on {dist_out['backend']}, "
+                             "expected nccl")
+    row = {"cards": n, "xla_group": local,
+           "xla_distributed_group_nccl_world1": dist_out["verbs"]}
+    print(f"[collective card] {json.dumps(row)} on {card}", flush=True)
     return row
 
 
@@ -3625,9 +3908,20 @@ def main():
     _phase("llama_1b training save_attn", phase_train_save_attn, card,
            full_row)
     torch.cuda.empty_cache()
-    # the same model and batch shape through the framework: TorchTrainer
-    _phase("llama_1b trainer", phase_trainer, card)
+    # the same model and batch shape through the framework: TorchTrainer,
+    # its batches from a dataset over a token corpus; then that plan alone
+    # into the card, and the collectives
+    corpus = tempfile.mkdtemp(prefix="chip-smoke-corpus-")
+    try:
+        corpus_sum = write_corpus(corpus, models.get_config(
+            "llama-1b").vocab_size)
+        _phase("llama_1b trainer", phase_trainer, card, corpus)
+        torch.cuda.empty_cache()
+        _phase("data ingest", phase_data_ingest, card, corpus, corpus_sum)
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
     torch.cuda.empty_cache()
+    _phase("collective (card)", phase_collective, card)
     gemma_train = gemma2_train_config()
     counts_d256, _ = _phase("gemma2_9b training (8 layers)", phase_train,
                             card, cfg=gemma_train, b=1, l=8192)

@@ -13,7 +13,7 @@ CPU). ``init(num_gpus=...)`` (default: the cards NVML counts, with no CUDA
 context made) is the ``GPU`` resource; workers see no card unless an actor
 opts in (``runtime_env={"env_vars": {"CUDA_VISIBLE_DEVICES": "0"}}`` beside
 ``num_gpus=1``). Subpackages (``serve``, ``models``, ``ops``, ``train``,
-``parallel``) load on first access; importing this package does not import torch.
+``parallel``, ``data``, ``collective``) load on first access; importing this package does not import torch.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
 machine with no GPU they raise rather than quietly run on the CPU.
@@ -46,7 +46,7 @@ from ray_tpu_torch.core.runtime import (
 from ray_tpu_torch.core.runtime_context import get_runtime_context
 
 _SUBPACKAGES = ("core", "ops", "models", "train", "serve", "util",
-                "accelerators", "parallel")
+                "accelerators", "parallel", "data", "collective")
 
 
 def __getattr__(name: str):

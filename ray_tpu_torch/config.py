@@ -129,6 +129,25 @@ _knob("spill_compress_max_bytes", int, 512 << 20,
       "bounds that worst case; 0 = compress everything",
       "core/spill_codec.py")
 
+# -- data (streaming exchange) ----------------------------------------------
+_knob("data_exchange_reducers", int, 4,
+      "max reducer actors per streaming exchange (logical partitions are "
+      "multiplexed over them)", "data/streaming.py")
+_knob("data_exchange_inflight", int, 32,
+      "max exchange blocks in flight (partition outputs not yet consumed "
+      "by a reducer) — the engine's backpressure bound",
+      "data/streaming.py")
+_knob("data_exchange_run_bytes", int, 32 << 20,
+      "reducer buffer bytes before a sorted run is flushed to the object "
+      "store (external-sort run size)", "data/streaming.py")
+_knob("data_exchange_target_rows", int, 250_000,
+      "rows per output block emitted by a streaming reducer",
+      "data/streaming.py")
+_knob("data_exchange_retries", int, 2,
+      "times a Dataset plan re-executes from lineage (sources are never "
+      "freed) when a streaming-exchange reducer actor dies before any "
+      "output was consumed; 0 = surface ActorDiedError", "data/dataset.py")
+
 # -- ops / models -----------------------------------------------------------
 _knob("attn_impl", str, "",
       "attention on CPU tensors: blockwise | naive (empty = auto); CUDA "

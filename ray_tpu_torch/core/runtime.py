@@ -2663,6 +2663,12 @@ class DriverRuntime:
                         target = (ws, spec)
                         dispatched = True
                         break
+                if dispatched:
+                    # claimed under the lock: _dispatch_to runs after it is
+                    # released, and until then another thread's _pump must
+                    # not see this worker idle and overwrite its held
+                    # resources (each overwrite lost a CPU for good)
+                    target[0].status = "busy"
             if not dispatched:
                 return
             self._dispatch_to(*target)

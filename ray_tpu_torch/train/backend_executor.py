@@ -14,7 +14,7 @@ adapter's node-death fan-out and treats preemption as a MEMBERSHIP EPOCH
 change instead of a failure — :meth:`reform` fences the survivors (kills
 the old gang: a half-dead SPMD group must never keep stepping), re-probes
 the largest placeable world size, re-forms the worker group there,
-renumbers ranks 0..n-1, and resumes every rank
+renumbers ranks 0..n-1, re-splits dataset shards, and resumes every rank
 from the last all-ranks-ok checkpoint; :meth:`maybe_expand` runs the same
 machine upward at checkpoint boundaries when capacity returns. Each
 re-form bumps ``world_epoch`` (surfaced to the user loop via
@@ -281,7 +281,7 @@ class BackendExecutor:
         Kills whatever survives of the current gang (a half-dead SPMD
         group must not keep stepping), re-forms the worker group at
         ``target`` (or the largest placeable world size), renumbers
-        ranks, and restarts every rank's
+        ranks, re-splits dataset shards, and restarts every rank's
         session from ``checkpoint_path`` with a bumped ``world_epoch``.
         Returns the new world size.
 
@@ -382,8 +382,13 @@ class BackendExecutor:
         self._backend.on_training_start(self.worker_group,
                                         self._backend_config)
         n = len(self.worker_group)
-        # dataset ingest needs the data library (not ported): the names
-        # reach the session, whose get_dataset_shard raises
+        # dataset ingest (reference DataConfig): each named dataset is
+        # streaming_split across ranks; workers pull their shard's blocks.
+        # Re-split on every membership epoch: shard count tracks the
+        # CURRENT world size, never the requested one.
+        shard_lists: Dict[str, Any] = {}
+        for name, ds in spec["datasets"].items():
+            shard_lists[name] = ds.streaming_split(n)
         trial_dir = spec["trial_dir"]
         refs = []
         for rank, w in enumerate(self.worker_group.workers):
@@ -397,7 +402,8 @@ class BackendExecutor:
                 trial_name=os.path.basename(trial_dir),
                 trial_dir=trial_dir,
                 loop_config=dict(spec["loop_config"]),
-                dataset_shards={name: None for name in spec["datasets"]},
+                dataset_shards={name: shards[rank]
+                                for name, shards in shard_lists.items()},
                 world_epoch=self._world_epoch,
                 resumed_from=checkpoint_path,
             )

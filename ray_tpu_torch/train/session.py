@@ -231,17 +231,14 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's shard of the named dataset (reference
-    ``ray.train.get_dataset_shard``). Datasets need the data library,
-    which is not ported yet: with datasets passed to the trainer this
-    raises ``NotImplementedError``."""
+    """This worker's DataIterator for the named dataset (reference
+    ``ray.train.get_dataset_shard``; sharding via ``streaming_split``)."""
     if _session is None:
         raise RuntimeError(
             "get_dataset_shard() called outside a training session")
-    shards = _session.context.dataset_shards
-    if shards:
-        raise NotImplementedError(
-            f"get_dataset_shard({name!r}): datasets need the data library, "
-            "not ported yet (ROADMAP.md queue 1 item 6, data/)")
-    raise KeyError(
-        f"no dataset {name!r}; the trainer was given no datasets")
+    shard = _session.context.dataset_shards.get(name)
+    if shard is None:
+        raise KeyError(
+            f"no dataset {name!r}; pass datasets={{{name!r}: ds}} to the "
+            f"trainer (have {sorted(_session.context.dataset_shards)})")
+    return shard

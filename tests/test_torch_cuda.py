@@ -4,7 +4,9 @@ PyTorch versions, and the CUDA autograd path running them. The serving
 engine's programs captured as CUDA graphs (``util.device_plane``) against
 the same programs run eagerly; a param swap releasing the step's graph
 pool, and ``remat_policy="save_attn"`` running the forward kernel once a
-layer; KV blocks through the device channel and back onto the card.
+layer; KV blocks through the device channel and back onto the card; data
+batches uploaded from reused pinned buffers, and consumed on a side stream;
+``XlaGroup`` over the card's NCCL.
 
 Marked ``cuda``; each test skips (with the reason) where no GPU is
 present. This file imports no JAX, so on a GPU machine without JAX it runs
@@ -828,6 +830,113 @@ def test_device_channel_carries_card_kv_blocks_bitwise(cuda):
         reader.close()
     finally:
         ch.unlink()
+
+
+class _BlockList:
+    """A stand-in dataset whose refs are the blocks themselves (the
+    runtime's ``get`` is stubbed to the identity)."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+
+    def iter_block_refs(self):
+        return iter(self.blocks)
+
+
+def _device_batches(monkeypatch, blocks, **kw):
+    import ray_tpu_torch
+    from ray_tpu_torch.data.iterator import DataIterator
+
+    monkeypatch.setattr(ray_tpu_torch, "get", lambda r: r)
+    it = DataIterator(_BlockList(blocks))
+    return it, it.iter_torch_batches(**kw)
+
+
+def test_pinned_buffers_reused_across_many_batches(cuda, monkeypatch):
+    """320 batches through the 3 pinned slots while the copy stream lags
+    (a sleep queued on it before every upload) and nothing on the host
+    waits for the card until the end: every batch on the card equals its
+    host batch (a slot rewritten before its upload read it would give a
+    later batch's rows), cast to int64 on the card from uint16."""
+    from ray_tpu_torch.data import iterator
+
+    upload = iterator._upload
+
+    def lagging_upload(bufs, stream, dev):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(1_000_000)
+        return upload(bufs, stream, dev)
+
+    monkeypatch.setattr(iterator, "_upload", lagging_upload)
+    rng = np.random.default_rng(0)
+    blocks = [{"tokens": rng.integers(0, 60000, (64, 257)).astype(
+        np.uint16)} for _ in range(20)]
+    _, batches = _device_batches(monkeypatch, blocks, batch_size=4,
+                                 device="cuda",
+                                 dtypes={"tokens": torch.int64})
+    host = np.concatenate([b["tokens"] for b in blocks]).astype(np.int64)
+    got = []
+    for batch in batches:
+        got.append(batch["tokens"])
+        assert batch["tokens"].dtype == torch.int64
+        assert batch["tokens"].device.type == "cuda"
+    assert len(got) == 320 > 100 * iterator.PINNED_SLOTS
+    torch.cuda.synchronize()
+    bad = [i for i, g in enumerate(got)
+           if not torch.equal(g.cpu(), torch.from_numpy(host[4 * i:4 * i + 4]))]
+    assert not bad, bad[:8]
+
+
+def test_batch_consumed_on_a_side_stream(cuda, monkeypatch):
+    """A batch taken while a side stream is current is ready on that stream
+    and stays valid there after the iterator moves on and frees nothing
+    under it."""
+    rng = np.random.default_rng(1)
+    blocks = [{"x": rng.standard_normal((32, 1024)).astype(np.float32)}
+              for _ in range(8)]
+    _, batches = _device_batches(monkeypatch, blocks, batch_size=8,
+                                 device="cuda")
+    side = torch.cuda.Stream()
+    sums = []
+    with torch.cuda.stream(side):
+        for batch in batches:
+            torch.cuda._sleep(1_000_000)      # the side stream lags
+            sums.append(batch["x"].double().sum(1))
+    torch.cuda.synchronize()
+    host = np.concatenate([b["x"] for b in blocks]).astype(np.float64)
+    want = host.sum(1)
+    np.testing.assert_allclose(torch.cat(sums).cpu().numpy(), want,
+                               rtol=1e-12)
+
+
+def test_xla_group_on_the_card_matches_the_plain_version(cuda):
+    """``XlaGroup`` over every card this process sees (NCCL), each verb
+    against the plain path on the same CPU inputs."""
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.collective.types import ReduceOp
+
+    n = torch.cuda.device_count()
+    g = col.XlaGroup(n, 0, "card")
+    plain = col.XlaGroup(n, 0, "plain", device="cpu")
+    xs = [torch.randint(-8, 9, (4096,)).float() for _ in range(n)]
+    on = [x.to(f"cuda:{i}") for i, x in enumerate(xs)]
+    for op in ReduceOp:
+        for got, want in zip(g.allreduce(on, op=op),
+                             plain.allreduce(xs, op=op)):
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+    for name in ("allgather", "broadcast", "reduce"):
+        for got, want in zip(getattr(g, name)(on), getattr(plain, name)(xs)):
+            assert torch.equal(got.cpu(), want), name
+    rs = [torch.arange(4 * n, dtype=torch.float32) + i for i in range(n)]
+    for got, want in zip(g.reducescatter([r.to(f"cuda:{i}") for i, r in
+                                          enumerate(rs)]),
+                         plain.reducescatter(rs)):
+        assert torch.equal(got.cpu(), want)
+    pairs = [(i, (i + 1) % n) for i in range(n)]
+    for got, want in zip(g.permute(on, pairs), plain.permute(xs, pairs)):
+        assert torch.equal(got.cpu(), want)
+    g.barrier()
 
 
 def test_failed_capture_raises_without_a_fallback(cuda):

@@ -57,6 +57,11 @@ def test_port_files_found():
     assert "ray_tpu_torch/serve/llm.py" in rel
     assert "ray_tpu_torch/models/delta.py" in rel
     assert "ray_tpu_torch/serve/multiplex.py" in rel
+    for mod in ("__init__", "block", "dataset", "execution", "grouped",
+                "iterator", "optimizer", "read_api", "streaming"):
+        assert f"ray_tpu_torch/data/{mod}.py" in rel
+    for mod in ("__init__", "collective", "coordinator", "types"):
+        assert f"ray_tpu_torch/collective/{mod}.py" in rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -167,7 +172,7 @@ def test_string_and_resolution_checkers_catch_faults(tmp_path):
     bad.write_text(
         "BOOT = \"runpy.run_module('ray_tpu.core.worker')\"\n"
         "ARGV = ['ray_tpu.core.worker', '--addr']\n"
-        "def f():\n    from ray_tpu_torch.data import Dataset\n"
+        "def f():\n    from ray_tpu_torch.tune import Tuner\n"
         "    from ray_tpu_torch.core.runtime import no_such_name\n"
         "    import ray_tpu_torch.cluster.adapter\n"
         "BOOT2 = \"runpy.run_module('ray_tpu_torch.core.nothing')\"\n")
@@ -176,7 +181,7 @@ def test_string_and_resolution_checkers_catch_faults(tmp_path):
         "ray_tpu_torch.cluster.adapter",
         "ray_tpu_torch.core.nothing",
         "ray_tpu_torch.core.runtime.no_such_name",
-        "ray_tpu_torch.data"]
+        "ray_tpu_torch.tune"]
     ok = tmp_path / "ok.py"
     ok.write_text("P = 'ray_tpu/ops/flash_pallas.py:63'\n"
                   "B = \"runpy.run_module('ray_tpu_torch.core.worker')\"\n"

@@ -14,8 +14,13 @@ the JAX package.
 - The resume-point rules (``_is_torn_save_dir``, ``_latest_checkpoint``)
   and the executor's elastic and death-naming logic run in both packages
   on the same inputs, held to the reference tests' expected values.
-- Loud errors for what is not ported: sharded mesh axes, datasets, Tune,
-  TPU slice topologies.
+- Datasets: a 2-rank trainer fed ``datasets={"train": ds}`` (40 rows,
+  each rank counts 20 of them, the reference's
+  ``test_train.py::test_jax_trainer_dataset_ingest``), whose first attempt
+  dies after a checkpoint and whose resumed attempt takes the same batches
+  an uninterrupted iteration of the shard gives.
+- Loud errors for what is not ported: sharded mesh axes, Tune, TPU slice
+  topologies; ``get_dataset_shard``'s errors are the reference's.
 
 One runtime per module, with a small store (64 MB, 16 MB prefaulted) and
 one prestarted worker.
@@ -340,6 +345,99 @@ def test_kill_and_resume_matches_uninterrupted_run(runtime, tmp_path):
                                     _leaves(helper.state["params"])):
         np.testing.assert_allclose(got.numpy(), ref.detach().numpy(),
                                    rtol=1e-6, atol=0, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# datasets: get_dataset_shard -> iter_torch_batches, killed and resumed
+# ---------------------------------------------------------------------------
+
+def _dataset_loop(config):
+    """Each rank walks its shard in batches of 5, reporting each batch's
+    ids and its running count; after batch 2 a checkpoint of (batches,
+    count, total). On the first attempt rank 0's process exits after batch
+    3; the resumed attempt skips the batches its checkpoint took. Each
+    rank writes what it saw into the trial dir at the end."""
+    import json
+    import os
+    import tempfile
+    import time
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import Checkpoint
+
+    ctx = train.get_context()
+    rank, trial_dir = ctx.get_world_rank(), ctx.get_trial_dir()
+    start, count, total = 0, 0, 0.0
+    resumed = train.get_checkpoint()
+    if resumed is not None:
+        with open(os.path.join(resumed.path, f"rank_{rank}",
+                               "state.json")) as f:
+            start, count, total = json.load(f)
+    marker = os.path.join(trial_dir, "died")
+    shard = train.get_dataset_shard("train")
+    for i, batch in enumerate(shard.iter_torch_batches(
+            batch_size=5, device="cpu", dtypes={"x": torch.float64})):
+        if i < start:
+            continue
+        ids = batch["x"].tolist()
+        count += len(ids)
+        total += sum(ids)
+        ckpt = None
+        if i + 1 == config["ckpt_batch"]:
+            d = tempfile.mkdtemp(dir=trial_dir)
+            with open(os.path.join(d, "state.json"), "w") as f:
+                json.dump([i + 1, count, total], f)
+            ckpt = Checkpoint(d)
+        train.report({"batch": i + 1, "ids": ids, "count": count,
+                      "total": total, "resumed": resumed is not None},
+                     checkpoint=ckpt)
+        if (rank == 0 and i + 1 == config["die_after"]
+                and not os.path.exists(marker)):
+            time.sleep(1.0)
+            open(marker, "w").close()
+            os._exit(1)
+    with open(os.path.join(trial_dir, f"seen_{rank}.json"), "w") as f:
+        json.dump({"count": count, "total": total}, f)
+
+
+def test_dataset_ingest_two_ranks_resumes_on_the_same_batches(runtime,
+                                                              tmp_path):
+    """``datasets={"train": ds}`` over 40 rows in 4 blocks: each rank's
+    shard is ``streaming_split(2)`` (2 blocks, 20 rows), and each rank
+    counts 20 (the reference's ``test_jax_trainer_dataset_ingest``). Rank
+    0 dies after batch 3, after a checkpoint at batch 2: the restarted
+    gang resumes at batch 3 and rank 0 reports, for every batch, the ids
+    an uninterrupted iteration of its shard gives."""
+    from ray_tpu_torch import data as tdata
+
+    ds = tdata.from_items([{"x": float(i)} for i in range(40)],
+                          parallelism=4)
+    result = TorchTrainer(
+        _dataset_loop, train_loop_config={"ckpt_batch": 2, "die_after": 3},
+        scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(storage_path=str(tmp_path),
+                             failure_config=FailureConfig(max_failures=1)),
+        datasets={"train": ds}).fit()
+    assert result.error is None
+    reports = _progress(result)
+    assert [r["batch"] for r in reports] == [1, 2, 3, 3, 4]
+    assert [r["resumed"] for r in reports] == [False] * 3 + [True] * 2
+    want = [b["x"].tolist() for b in ds.streaming_split(2)[0]
+            .iter_torch_batches(batch_size=5, device="cpu",
+                                dtypes={"x": torch.float64})]
+    assert len(want) == 4
+    for r in reports:
+        assert r["ids"] == want[r["batch"] - 1], r
+    assert result.metrics["count"] == 20
+    seen = []
+    for rank in range(2):
+        with open(os.path.join(result.path, f"seen_{rank}.json")) as f:
+            seen.append(json.load(f))
+    assert [s["count"] for s in seen] == [20, 20]
+    assert sum(s["total"] for s in seen) == sum(range(40))
+    assert seen[0]["total"] == sum(sum(b) for b in want)
 
 
 # ---------------------------------------------------------------------------
@@ -697,22 +795,27 @@ def test_default_mesh_is_one_rank_with_the_reference_axes():
     assert set(sizes.values()) == {1}
 
 
-def test_get_dataset_shard_raises_when_datasets_were_passed():
+def test_get_dataset_shard_errors_match_reference():
+    """Outside a session, and for a name the trainer was not given, the
+    port raises the reference's errors."""
+    from ray_tpu.train import session as jsession
     from ray_tpu_torch.train import get_dataset_shard, session
 
     with pytest.raises(RuntimeError, match="outside a training session"):
         get_dataset_shard()
-    for shards, err, match in (({"train": None}, NotImplementedError,
-                                "queue 1 item 6"),
-                               ({}, KeyError, "no dataset")):
-        s = session._Session(lambda: None, session.TrainContext(
-            trial_dir=tempfile.mkdtemp(), dataset_shards=shards))
-        session._init_session(s)
+    errors = []
+    for mod in (jsession, session):
+        s = mod._Session(lambda: None, mod.TrainContext(
+            trial_dir=tempfile.mkdtemp(), dataset_shards={"eval": object()}))
+        mod._init_session(s)
         try:
-            with pytest.raises(err, match=match):
-                get_dataset_shard("train")
+            with pytest.raises(KeyError) as info:
+                mod.get_dataset_shard("train")
+            errors.append(str(info.value))
         finally:
-            session._shutdown_session()
+            mod._shutdown_session()
+    assert errors[0] == errors[1]
+    assert "no dataset 'train'" in errors[1] and "['eval']" in errors[1]
 
 
 def test_as_trainable_and_topology_raise():
